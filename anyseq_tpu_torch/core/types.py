@@ -1,0 +1,145 @@
+"""Core scalar types, predecessor codes and scheme descriptions.
+
+The same semantics as ``anyseq_tpu.core.types``, without JAX:
+
+- scores are int32 on the device; the public API widens them to Python int;
+- predecessor codes::
+
+    PRED_NONE   = 0   # stop marker / local-alignment zero cell
+    PRED_GAP_Q  = 1   # came from (i, j-1)  -- gap in the query
+    PRED_GAP_S  = 2   # came from (i-1, j)  -- gap in the subject
+    PRED_NO_GAP = 3   # came from (i-1, j-1)
+
+- ``SCORE_MIN`` is the running-maximum sentinel.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+SCORE_MIN = -2147483647
+
+PRED_NONE = 0
+PRED_GAP_Q = 1
+PRED_GAP_S = 2
+PRED_NO_GAP = 3
+
+GAP_SYM = ord("_")
+EMPTY_SYM = ord(" ")
+
+
+class Mode(enum.Enum):
+    """Alignment scheme."""
+
+    GLOBAL = "global"
+    SEMIGLOBAL = "semiglobal"
+    LOCAL = "local"
+
+    @classmethod
+    def parse(cls, value: "Mode | str") -> "Mode":
+        if isinstance(value, Mode):
+            return value
+        return cls(str(value).lower())
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearScoring:
+    """Linear (constant) gap scoring; ``gap`` must be <= 0."""
+
+    match: int = 2
+    mismatch: int = -1
+    gap: int = -1
+
+    def __post_init__(self):
+        if self.gap > 0:
+            raise ValueError("gap penalty must be <= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class AffineScoring:
+    """Gotoh affine gap scoring: gap cost = gap_open + k * gap_extend.
+
+    Declared so that callers can name it; no engine of this package runs
+    it yet (ROADMAP queue 1, item 7)."""
+
+    match: int = 2
+    mismatch: int = -1
+    gap_open: int = -2
+    gap_extend: int = -1
+
+    def __post_init__(self):
+        if self.gap_open > 0 or self.gap_extend > 0:
+            raise ValueError("gap penalties must be <= 0")
+
+
+Scoring = LinearScoring | AffineScoring
+
+
+def require_linear(scoring) -> LinearScoring:
+    """The scoring every engine of this package runs: linear gaps only."""
+    if isinstance(scoring, AffineScoring):
+        raise NotImplementedError(
+            "affine scoring is not ported yet (ROADMAP queue 1, item 7)"
+        )
+    if not isinstance(scoring, LinearScoring):
+        raise TypeError(f"expected LinearScoring, got {type(scoring).__name__}")
+    return scoring
+
+
+def scoring_from_reference(obj) -> LinearScoring:
+    """This package's :class:`LinearScoring` from any object with
+    ``match`` / ``mismatch`` / ``gap`` attributes (for example the JAX
+    package's own ``LinearScoring``)."""
+    if hasattr(obj, "gap_open"):
+        raise NotImplementedError(
+            "affine scoring is not ported yet (ROADMAP queue 1, item 7)"
+        )
+    return LinearScoring(int(obj.match), int(obj.mismatch), int(obj.gap))
+
+
+@dataclasses.dataclass(frozen=True)
+class Alignment:
+    """Result of an alignment construction.
+
+    ``query_aligned`` / ``subject_aligned`` are byte buffers of length
+    ``len(query) + len(subject)`` prefilled with ``' '``; the aligned pair
+    of cell (i, j) is written at offset ``i + j + 1``; gaps are ``'_'``.
+    Use :meth:`compact` for the conventional dense gapped strings.
+    """
+
+    score: int
+    query_aligned: bytes
+    subject_aligned: bytes
+    start: tuple[int, int]
+
+    def compact(self) -> tuple[str, str]:
+        """Strip the sparse ' ' padding, returning dense aligned strings."""
+        q = []
+        s = []
+        for cq, cs in zip(self.query_aligned, self.subject_aligned):
+            if cq == EMPTY_SYM and cs == EMPTY_SYM:
+                continue
+            q.append(chr(cq))
+            s.append(chr(cs))
+        return "".join(q), "".join(s)
+
+
+def as_u8(seq) -> np.ndarray:
+    """Coerce a sequence (str | bytes | uint8 array) to a numpy uint8 array."""
+    if isinstance(seq, str):
+        seq = seq.encode()
+    if isinstance(seq, (bytes, bytearray)):
+        return np.frombuffer(bytes(seq), dtype=np.uint8)
+    arr = np.asarray(seq)
+    if arr.dtype != np.uint8:
+        arr = arr.astype(np.uint8)
+    return arr
+
+
+def as_tensor(seq, device) -> torch.Tensor:
+    """A sequence (str | bytes | uint8 array) as a 1-D uint8 tensor on
+    `device`."""
+    return torch.from_numpy(as_u8(seq).copy()).to(device)

@@ -1,0 +1,65 @@
+"""K3 wrapper: the batched traceback walk over packed codes
+(``csrc/walk.cu``).
+
+On a CPU tensor :func:`walk` runs the plain version (:data:`plain`,
+``engine.batch.walk_batch_ends``); on a CUDA tensor it launches the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from anyseq_tpu_torch.core.types import EMPTY_SYM, Mode
+from anyseq_tpu_torch.engine import batch
+from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD
+from anyseq_tpu_torch.kernels import _build
+
+plain = batch.walk_batch_ends
+
+
+def _check(words, q, s, ends) -> None:
+    B, M, NW = words.shape
+    if words.dtype != torch.int32 or not words.is_contiguous():
+        raise ValueError("words must be a contiguous (B, M, NW) int32 tensor")
+    for name, t in (("q", q), ("s", s)):
+        if (t.dtype != torch.uint8 or t.dim() != 2 or t.shape[0] != B
+                or t.stride(1) != 1):
+            raise ValueError(f"{name} must be a (B, L) uint8 tensor")
+    if q.shape[1] != M or NW * CODES_PER_WORD < s.shape[1]:
+        raise ValueError("code words do not cover the sequences")
+    if ends.shape != (B, 2):
+        raise ValueError("ends must be (B, 2)")
+    if len({words.device, q.device, s.device, ends.device}) != 1:
+        raise ValueError("all tensors must be on one device")
+
+
+def walk(words, q, s, ends, mode: Mode):
+    """Walk B problems from their end cells. words: (B, M, NW) int32
+    packed codes, q: (B, M) uint8, s: (B, N) uint8, ends: (B, 2) int32.
+    Returns (out_q, out_s, starts) as ``batch.walk_batch_ends``."""
+    mode = Mode.parse(mode)
+    _check(words, q, s, ends)
+    if words.device.type == "cpu":
+        return plain(words, q, s, ends, mode)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    return launch(_build.library(), words, q, s, ends, mode)
+
+
+def launch(lib, words, q, s, ends, mode: Mode):
+    """Launch the kernel of `lib`, wherever the tensors lie."""
+    B, M, NW = words.shape
+    L = M + s.shape[1]
+    dev = words.device
+    ends = ends.to(torch.int32).contiguous()
+    out_q = torch.full((B, L), EMPTY_SYM, dtype=torch.uint8, device=dev)
+    out_s = torch.full((B, L), EMPTY_SYM, dtype=torch.uint8, device=dev)
+    starts = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    err = lib.anyseq_walk(
+        words.data_ptr(), M * NW, NW, q.data_ptr(), q.stride(0),
+        s.data_ptr(), s.stride(0), ends.data_ptr(), B,
+        int(mode is Mode.GLOBAL), out_q.data_ptr(), out_s.data_ptr(), L,
+        starts.data_ptr(), _build.stream(dev),
+    )
+    _build.check(err, "walk")
+    _build.launches["walk"] += 1
+    return out_q, out_s, starts

@@ -1,0 +1,85 @@
+"""K1/K2 wrapper: the single-pair DP sweep (``csrc/wavefront.cu``).
+
+:func:`score` returns the output dict of ``engine.linmem.score_rows``
+(``last_row``, ``last_col``, ``best``; with ``emit_preds`` also ``preds``,
+the packed codes of ``linmem.pack_codes``). On a CPU tensor it runs the
+plain version (:data:`plain`, :data:`plain_preds`); on a CUDA tensor it
+launches the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from anyseq_tpu_torch.core.types import LinearScoring, Mode
+from anyseq_tpu_torch.engine import linmem
+from anyseq_tpu_torch.kernels import _build
+
+plain = linmem.score_rows
+plain_preds = linmem.score_rows_with_preds
+
+STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh)
+MODE_CODE = {Mode.GLOBAL: 0, Mode.SEMIGLOBAL: 1, Mode.LOCAL: 2}
+_INT_MAX = 2**31 - 1
+
+
+def _check(q: torch.Tensor, s: torch.Tensor) -> None:
+    for name, t in (("query", q), ("subject", s)):
+        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
+        if not 0 < t.shape[0] < 2**31 // 2:
+            raise ValueError(f"{name} length {t.shape[0]} out of range")
+    if q.device != s.device:
+        raise ValueError("query and subject must be on one device")
+
+
+def score(q, s, mode: Mode, sc: LinearScoring, emit_preds: bool = False):
+    """DP sweep of query q against subject s (1-D uint8 tensors)."""
+    mode = Mode.parse(mode)
+    _check(q, s)
+    if q.device.type == "cpu":
+        return (plain_preds if emit_preds else plain)(q, s, mode, sc)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return launch(_build.library(), q, s, mode, sc, emit_preds)
+
+
+def reduce_best(bests: torch.Tensor) -> torch.Tensor:
+    """(S, 3) per-strip first maxima -> (3,) overall first maximum in
+    row-major order: highest score, then smallest i, then smallest j."""
+    s, i, j = bests.unbind(1)
+    top = s.max()
+    at_top = s == top
+    i_min = torch.where(at_top, i, _INT_MAX).min()
+    j_min = torch.where(at_top & (i == i_min), j, _INT_MAX).min()
+    return torch.stack([top, i_min, j_min])
+
+
+def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
+    """Launch the kernel of `lib` on q and s, wherever they lie."""
+    m, n = int(q.shape[0]), int(s.shape[0])
+    strips = -(-n // STRIP)
+    i32 = {"dtype": torch.int32, "device": q.device}
+    ticket = torch.zeros(1, **i32)
+    flags = torch.zeros(strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
+    last_row = torch.empty(n, **i32)
+    last_col = torch.empty(m, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    pred_stride = -(-n // linmem.CODES_PER_WORD)
+    preds = torch.empty((m, pred_stride), **i32) if emit_preds else None
+    err = lib.anyseq_wavefront(
+        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
+        MODE_CODE[mode], int(emit_preds), ticket.data_ptr(),
+        bcols.data_ptr(), flags.data_ptr(), last_row.data_ptr(),
+        last_col.data_ptr(), bests.data_ptr(),
+        preds.data_ptr() if emit_preds else None, pred_stride,
+        _build.stream(q.device),
+    )
+    _build.check(err, "wavefront")
+    _build.launches["wavefront_preds" if emit_preds else
+                    "wavefront_score"] += 1
+    outs = {"last_row": last_row, "last_col": last_col,
+            "best": reduce_best(bests)}
+    if emit_preds:
+        outs["preds"] = preds
+    return outs
