@@ -3,8 +3,9 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The port of the JAX package ``anyseq_tpu``, which stays the reference:
 global (Needleman-Wunsch), semiglobal and local (Smith-Waterman) alignment
-of one pair with linear gap scoring, score-only, full-matrix traceback and
-linear-memory (Hirschberg) construction. Every entry point takes an
+of one pair with linear or affine (Gotoh) gap scoring, score-only,
+full-matrix traceback and linear-memory construction (Hirschberg, or
+Myers-Miller for affine gaps). Every entry point takes an
 explicit ``device`` ("cuda" by default; "cpu" runs the kernels' plain
 torch versions).
 """

@@ -10,7 +10,8 @@ The same semantics as ``anyseq_tpu.core.types``, without JAX:
     PRED_GAP_S  = 2   # came from (i-1, j)  -- gap in the subject
     PRED_NO_GAP = 3   # came from (i-1, j-1)
 
-- ``SCORE_MIN`` is the running-maximum sentinel.
+- ``SCORE_MIN`` is the running-maximum sentinel; ``NEG`` is the affine
+  -inf, safe within int32 under repeated gap additions.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 SCORE_MIN = -2147483647
+NEG = -(2**29)
 
 PRED_NONE = 0
 PRED_GAP_Q = 1
@@ -60,10 +62,8 @@ class LinearScoring:
 
 @dataclasses.dataclass(frozen=True)
 class AffineScoring:
-    """Gotoh affine gap scoring: gap cost = gap_open + k * gap_extend.
-
-    Declared so that callers can name it; no engine of this package runs
-    it yet (ROADMAP queue 1, item 7)."""
+    """Gotoh affine gap scoring: a gap of k symbols costs
+    gap_open + k * gap_extend."""
 
     match: int = 2
     mismatch: int = -1
@@ -78,25 +78,21 @@ class AffineScoring:
 Scoring = LinearScoring | AffineScoring
 
 
-def require_linear(scoring) -> LinearScoring:
-    """The scoring every engine of this package runs: linear gaps only."""
-    if isinstance(scoring, AffineScoring):
-        raise NotImplementedError(
-            "affine scoring is not ported yet (ROADMAP queue 1, item 7)"
-        )
-    if not isinstance(scoring, LinearScoring):
-        raise TypeError(f"expected LinearScoring, got {type(scoring).__name__}")
+def check_scoring(scoring) -> Scoring:
+    """The scoring, if it is one that the engines run: linear or affine."""
+    if not isinstance(scoring, (LinearScoring, AffineScoring)):
+        raise TypeError("expected LinearScoring or AffineScoring, got "
+                        f"{type(scoring).__name__}")
     return scoring
 
 
-def scoring_from_reference(obj) -> LinearScoring:
-    """This package's :class:`LinearScoring` from any object with
-    ``match`` / ``mismatch`` / ``gap`` attributes (for example the JAX
-    package's own ``LinearScoring``)."""
+def scoring_from_reference(obj) -> Scoring:
+    """This package's scoring from any object with ``match`` / ``mismatch``
+    and either ``gap`` or ``gap_open`` / ``gap_extend`` attributes (for
+    example the JAX package's own ``LinearScoring`` or ``AffineScoring``)."""
     if hasattr(obj, "gap_open"):
-        raise NotImplementedError(
-            "affine scoring is not ported yet (ROADMAP queue 1, item 7)"
-        )
+        return AffineScoring(int(obj.match), int(obj.mismatch),
+                             int(obj.gap_open), int(obj.gap_extend))
     return LinearScoring(int(obj.match), int(obj.mismatch), int(obj.gap))
 
 

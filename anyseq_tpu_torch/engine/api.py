@@ -1,6 +1,7 @@
 """User-facing alignment API: score-only, full-matrix traceback and the
-linear-memory (Hirschberg) construction, global / semiglobal / local, with
-linear gap scoring, on an explicit torch device.
+linear-memory construction (Hirschberg, or Myers-Miller for affine gaps),
+global / semiglobal / local, with linear or affine (Gotoh) gap scoring,
+on an explicit torch device.
 
 The device is never chosen silently: the default is ``"cuda"``, and CPU
 runs (the tests) pass ``device="cpu"``, which runs every kernel's plain
@@ -14,7 +15,7 @@ from anyseq_tpu_torch.core.types import (
     Mode,
     as_tensor,
     as_u8,
-    require_linear,
+    check_scoring,
 )
 from anyseq_tpu_torch.engine import device_tb, hirschberg, linmem
 from anyseq_tpu_torch.kernels import wavefront
@@ -36,7 +37,7 @@ def align_score(query, subject, mode="global", scoring=LinearScoring(),
                 device="cuda") -> int:
     """Score-only alignment."""
     mode = Mode.parse(mode)
-    sc = require_linear(scoring)
+    sc = check_scoring(scoring)
     q, s = _prep(query, subject, device)
     outs = wavefront.score(q, s, mode, sc)
     return int(linmem.extract_end(outs, q.shape[0], s.shape[0], mode)[0])
@@ -47,7 +48,7 @@ def align_full_tb(query, subject, mode="global", scoring=LinearScoring(),
     """Full-matrix traceback alignment: O(m*n/4) bytes of predecessor
     codes on the device; use :func:`align` for long sequences."""
     mode = Mode.parse(mode)
-    sc = require_linear(scoring)
+    sc = check_scoring(scoring)
     q, s = _prep(query, subject, device)
     score, _, out_q, out_s, start = device_tb.fulltb(q, s, mode, sc)
     return Alignment(score, bytes(out_q), bytes(out_s), start)

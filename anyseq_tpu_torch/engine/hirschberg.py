@@ -1,18 +1,30 @@
-"""Linear-memory (Hirschberg) construction, linear gaps, one device.
+"""Linear-memory construction on one device: Hirschberg for linear gaps,
+Myers-Miller for affine (Gotoh) gaps.
 
-The port of the JAX package's ``engine/hirschberg.py`` (``_hb_global`` and
-``align_hirschberg`` without the mesh and checkpoint branches), with the
-same splits and therefore the same strings:
+The port of the JAX package's ``engine/hirschberg.py`` (``_hb_global``,
+``_hb_global_affine`` and ``align_hirschberg`` without the mesh and
+checkpoint branches), with the same splits and therefore the same
+strings:
 
 * every divide level runs all its parts at once: a part's left half
   forward and its right half reversed give the two boundary columns, and
-  ``kernels.lastcols.hb_merge`` picks the split row (hb_sum, ties to the
-  smallest k). Levels of one or two parts run each half as one wide
-  single-pair sweep (K1), transposed so that the half's last column is
-  the sweep's last row; deeper levels run every half in one batched
-  sweep (K4). Only the (P,) split rows and scores come back to the host;
+  the level's merge picks the split row (ties to the smallest k):
+  ``kernels.lastcols.hb_merge`` (hb_sum) for linear gaps,
+  ``kernels.lastcols.mm_merge`` for affine gaps, which also reads the E
+  columns and says whether a gap run crosses the cut. Parts carry
+  (qlo, qhi, slo, shi, sgap, egap): whether the part's path enters
+  through its top row, or leaves through its bottom row, inside a
+  horizontal gap run whose gap_open is paid outside it (always False for
+  linear gaps);
+* levels of one or two parts run each half as one wide single-pair sweep
+  (K1, transposed so that the half's last column is the sweep's last row,
+  since linear GLOBAL DP is transpose-symmetric; K5 in the half's own
+  orientation, since transposing Gotoh swaps E and F and ``start_gap``
+  names a horizontal run); deeper levels run every half in one batched
+  sweep (K4 / K5L). Only the (P,) split rows, crossing flags and scores
+  come back to the host;
 * parts of width <= ``MIN_WIDTH`` (or of height <= 1) are terminal
-  stripes: a batched pred sweep in torch, then the batched walk (K3),
+  stripes: a batched pred sweep in torch, then the batched walk (K3 / K6),
   whose walked positions are copied into the output buffers on the
   device;
 * semiglobal and local alignments first find the end cell (forward sweep)
@@ -29,11 +41,12 @@ import torch
 from anyseq_tpu_torch.core.types import (
     EMPTY_SYM,
     GAP_SYM,
+    AffineScoring,
     Alignment,
     LinearScoring,
     Mode,
     as_tensor,
-    require_linear,
+    check_scoring,
 )
 from anyseq_tpu_torch.engine import batch, linmem
 from anyseq_tpu_torch.kernels import lastcols, wavefront
@@ -56,32 +69,47 @@ def _gather(seq, lo, length, rev, width: int):
     return seq[idx.clamp(0, seq.shape[0] - 1)]
 
 
-def _level_per_half(q, s, parts, sc: LinearScoring):
-    """Boundary columns of a level of few, wide parts: one K1 sweep per
-    half, transposed (GLOBAL linear DP is transpose-symmetric)."""
-    cols = []
-    for qlo, qhi, slo, shi in parts:
-        mid = (shi - slo) // 2
-        for qa, sa in ((q[qlo:qhi], s[slo:slo + mid]),
-                       (q[qlo:qhi].flip(0), s[slo + mid:shi].flip(0))):
-            cols.append(wavefront.score(sa, qa, Mode.GLOBAL, sc)["last_row"])
+def _stack(cols):
+    """(P, max length) int32 of 1-D columns, zero-padded."""
     width = max(c.shape[0] for c in cols)
-    cols = torch.stack([torch.nn.functional.pad(c, (0, width - c.shape[0]))
+    return torch.stack([torch.nn.functional.pad(c, (0, width - c.shape[0]))
                         for c in cols])
-    return cols[0::2], cols[1::2]
 
 
-def _level_batched(q, s, parts, sc: LinearScoring):
-    """Boundary columns of a level: every half in one K4 sweep."""
+def _level_per_half(q, s, parts, sc):
+    """Boundary columns of a level of few, wide parts, one sweep per half:
+    [L, R] for linear gaps, [HL, EL, HR, ER] for affine."""
+    affine = isinstance(sc, AffineScoring)
+    cols = []
+    for qlo, qhi, slo, shi, sg, eg in parts:
+        mid = (shi - slo) // 2
+        for qa, sa, flag in ((q[qlo:qhi], s[slo:slo + mid], sg),
+                             (q[qlo:qhi].flip(0), s[slo + mid:shi].flip(0),
+                              eg)):
+            if affine:
+                outs = wavefront.score(qa, sa, Mode.GLOBAL, sc,
+                                       start_gap=flag, emit_col_e=True)
+                cols.append((outs["last_col"], outs["last_col_e"]))
+            else:
+                outs = wavefront.score(sa, qa, Mode.GLOBAL, sc)
+                cols.append((outs["last_row"],))
+    kinds = [_stack(list(c)) for c in zip(*cols)]
+    return [k[0::2] for k in kinds] + [k[1::2] for k in kinds]
+
+
+def _level_batched(q, s, parts, sc):
+    """Boundary columns of a level, every half in one K4 / K5L sweep:
+    [L, R] for linear gaps, [HL, EL, HR, ER] for affine."""
     dev = q.device
-    qlo, slo, hs, ws, rev = [], [], [], [], []
-    for a, b, c, d in parts:
+    qlo, slo, hs, ws, rev, sgaps = [], [], [], [], [], []
+    for a, b, c, d, sg, eg in parts:
         mid = (d - c) // 2
         qlo += [a, a]
         hs += [b - a, b - a]
         slo += [c, c + mid]
         ws += [mid, d - c - mid]
         rev += [False, True]
+        sgaps += [sg, eg]   # the reversed half starts where the part ends
 
     def t(v, dtype=torch.int64):
         return torch.tensor(v, dtype=dtype, device=dev)
@@ -89,9 +117,32 @@ def _level_batched(q, s, parts, sc: LinearScoring):
     rev_t = t(rev, torch.bool)
     q3 = _gather(q, t(qlo), t(hs), rev_t, max(hs))
     s3 = _gather(s, t(slo), t(ws), rev_t, max(ws))
-    cols = lastcols.last_cols(q3, s3, t(hs, torch.int32), t(ws, torch.int32),
-                              sc)
-    return cols[0::2], cols[1::2]
+    hs, ws = t(hs, torch.int32), t(ws, torch.int32)
+    if isinstance(sc, AffineScoring):
+        kinds = lastcols.last_cols_affine(q3, s3, hs, ws, sc,
+                                          t(sgaps, torch.bool))
+    else:
+        kinds = (lastcols.last_cols(q3, s3, hs, ws, sc),)
+    return [k[0::2] for k in kinds] + [k[1::2] for k in kinds]
+
+
+def _split(q, s, parts, sc):
+    """Split rows of a level: (k, crosses_in_gap, score) per part."""
+    level = _level_per_half if len(parts) <= 2 else _level_batched
+    cols = level(q, s, parts, sc)
+    dev = cols[0].device
+
+    def t(i, dtype=torch.int64):
+        return torch.tensor([p[i] for p in parts], dtype=dtype, device=dev)
+
+    hs = t(1) - t(0)
+    mids = (t(3) - t(2)) // 2
+    rights = t(3) - t(2) - mids
+    if isinstance(sc, AffineScoring):
+        return lastcols.mm_merge(*cols, hs, mids, rights, sc,
+                                 t(4, torch.bool), t(5, torch.bool))
+    ks, scores = lastcols.hb_merge(*cols, hs, mids, rights, sc.gap)
+    return ks, torch.zeros_like(ks, dtype=torch.bool), scores
 
 
 def _write_all_gap_subject(s, base: int, out_q, out_s) -> None:
@@ -100,13 +151,12 @@ def _write_all_gap_subject(s, base: int, out_q, out_s) -> None:
     out_s[base: base + s.shape[0]] = s
 
 
-def _terminals(q, s, terminals, off, out_q, out_s, sc: LinearScoring):
+def _terminals(q, s, terminals, off, out_q, out_s, sc, root):
     """Walk the terminal stripes into out_q / out_s (whose last slot takes
-    the writes of unwalked positions). Returns the score of a stripe that
-    is the whole problem, else None."""
+    the writes of unwalked positions). Returns the score of the stripe
+    `root` (the whole problem), or None if it is not among them."""
     dev = q.device
     dump = out_q.shape[0] - 1
-    root = (0, q.shape[0], 0, s.shape[0])
     root_score = None
     groups: dict[tuple[int, int], list] = {}
     for part in terminals:
@@ -115,14 +165,21 @@ def _terminals(q, s, terminals, off, out_q, out_s, sc: LinearScoring):
     for (Hb, Wb), parts in groups.items():
         for lo in range(0, len(parts), TERMINAL_BATCH):
             chunk = parts[lo: lo + TERMINAL_BATCH]
-            qlo = torch.tensor([p[0] for p in chunk], device=dev)
-            slo = torch.tensor([p[2] for p in chunk], device=dev)
-            hs = torch.tensor([p[1] - p[0] for p in chunk], device=dev)
-            ws = torch.tensor([p[3] - p[2] for p in chunk], device=dev)
+
+            def t(i, dtype=torch.int64):
+                return torch.tensor([p[i] for p in chunk], dtype=dtype,
+                                    device=dev)
+
+            qlo, slo = t(0), t(2)
+            hs, ws = t(1) - qlo, t(3) - slo
             fwd = torch.zeros(len(chunk), dtype=torch.bool, device=dev)
             q3 = _gather(q, qlo, hs, fwd, Hb)
             s3 = _gather(s, slo, ws, fwd, Wb)
-            oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
+            if isinstance(sc, AffineScoring):
+                oq, os_, scores = batch.preds_walk_batch_affine(
+                    q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
+            else:
+                oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
             if root in chunk:
                 root_score = int(scores[chunk.index(root)])
             # copy only the walked positions: a stripe's unwalked slots
@@ -136,18 +193,18 @@ def _terminals(q, s, terminals, off, out_q, out_s, sc: LinearScoring):
     return root_score
 
 
-def _hb_global(q, s, off: int, out_q, out_s, sc: LinearScoring) -> int:
-    """Level-synchronous global Hirschberg of q against s (both
+def _hb_global(q, s, off: int, out_q, out_s, sc) -> int:
+    """Level-synchronous global construction of q against s (both
     non-empty), whose cell (i, j) lands at position off + i + j + 1 of
     out_q / out_s. Returns the global score."""
     m, n = q.shape[0], s.shape[0]
-    g = sc.gap
+    root = (0, m, 0, n, False, False)
     root_score = None
-    active: list[tuple[int, int, int, int]] = []
-    terminals: list[tuple[int, int, int, int]] = []
+    active: list[tuple] = []
+    terminals: list[tuple] = []
 
     def classify(part):
-        qlo, qhi, slo, shi = part
+        qlo, qhi, slo, shi = part[:4]
         h, w = qhi - qlo, shi - slo
         if h == 0:
             _write_all_gap_subject(s[slo:shi], off + qlo + slo, out_q, out_s)
@@ -156,28 +213,23 @@ def _hb_global(q, s, off: int, out_q, out_s, sc: LinearScoring) -> int:
         else:
             active.append(part)
 
-    classify((0, m, 0, n))
+    classify(root)
     while active:
         parts, active = active, []
-        level = _level_per_half if len(parts) <= 2 else _level_batched
-        L, R = level(q, s, parts, sc)
-        dev = L.device
-        hs = torch.tensor([p[1] - p[0] for p in parts], device=dev)
-        mids = torch.tensor([(p[3] - p[2]) // 2 for p in parts], device=dev)
-        rights = torch.tensor([p[3] - p[2] for p in parts], device=dev) - mids
-        ks, scores = lastcols.hb_merge(L, R, hs, mids, rights, g)
-        ks, scores = torch.stack([ks, scores]).tolist()
-        for (qlo, qhi, slo, shi), k, score in zip(parts, ks, scores):
+        ks, cross, scores = _split(q, s, parts, sc)
+        rows = torch.stack([ks, cross.to(ks.dtype), scores]).T.tolist()
+        for (qlo, qhi, slo, shi, sg, eg), (k, c, score) in zip(parts, rows):
             if root_score is None:
                 root_score = score
             mid = (shi - slo) // 2
-            classify((qlo, qlo + k + 1, slo, slo + mid))
-            classify((qlo + k + 1, qhi, slo + mid, shi))
-    term = _terminals(q, s, terminals, off, out_q, out_s, sc)
+            c = bool(c)
+            classify((qlo, qlo + k + 1, slo, slo + mid, sg, c))
+            classify((qlo + k + 1, qhi, slo + mid, shi, c, eg))
+    term = _terminals(q, s, terminals, off, out_q, out_s, sc, root)
     return root_score if root_score is not None else term
 
 
-def _reverse_end(outs, mr: int, nr: int, g: int) -> torch.Tensor:
+def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
     """Start of a semiglobal alignment from the GLOBAL sweep of the
     reversed end prefix: the best cell of its last row or column, or one
     of the all-gap boundary cells (interior candidates win ties)."""
@@ -189,7 +241,13 @@ def _reverse_end(outs, mr: int, nr: int, g: int) -> torch.Tensor:
     score = torch.where(take, lcol[ci].to(torch.int64), score)
     ri = torch.where(take, ci, ri)
     rj = torch.where(take, nr - 1, rj)
-    for cand, i, j in ((g * mr, mr - 1, -1), (g * nr, -1, nr - 1)):
+
+    def all_gap(length):
+        if isinstance(sc, AffineScoring):
+            return sc.gap_open + sc.gap_extend * length
+        return sc.gap * length
+
+    for cand, i, j in ((all_gap(mr), mr - 1, -1), (all_gap(nr), -1, nr - 1)):
         take = cand > score
         score = torch.where(take, cand, score)
         ri = torch.where(take, i, ri)
@@ -209,7 +267,7 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
         raise NotImplementedError(
             "checkpoint/resume is not ported yet (ROADMAP queue 1, item 9)")
     mode = Mode.parse(mode)
-    sc = require_linear(scoring)
+    sc = check_scoring(scoring)
     q = as_tensor(query, device)
     s = as_tensor(subject, device)
     m, n = q.shape[0], s.shape[0]
@@ -240,7 +298,7 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
     else:
         # GLOBAL inits pin the reverse start to the forward end cell
         outs = wavefront.score(qr, sr, Mode.GLOBAL, sc)
-        rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc.gap).tolist()
+        rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
     si, sj = ei - ri, ej - rj
     if si > ei or sj > ej:
         return result(score, (si, sj))

@@ -1,10 +1,11 @@
 """Build of the CUDA kernels in ``csrc/``, their ctypes binding, and one
 launch counter per kernel.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``anyseq_tpu_torch/_build/``
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into a shared
+library with a plain C interface under ``anyseq_tpu_torch/_build/``
 (named by a hash of the sources and flags, so an unchanged build is
-reused), and loaded with ctypes. Nothing here runs at import time.
+reused), loaded with ctypes. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,14 +20,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu")
-HEADERS = ("common.cuh", "sweep.cuh")
+SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
+           "walk_affine.cu", "lastcols_affine.cu")
+HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-# Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4.
+# Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4, K5,
+# K5p, K5L, K6.
 launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
-            "lastcols": 0}
+            "lastcols": 0, "wavefront_affine_score": 0,
+            "wavefront_affine_preds": 0, "lastcols_affine": 0,
+            "walk_affine": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
@@ -36,6 +41,13 @@ SIGNATURES = {
                     _P),
     "anyseq_lastcols": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                         _P, _I, _P, _P, _I, _P),
+    "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                           _P, _P, _I, _P, _P),
+    "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                               _P),
 }
 
 
@@ -82,6 +94,19 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Build:
     """Compile the kernels (unless this exact build exists) and load them."""
     global _loaded
@@ -91,17 +116,14 @@ def build() -> Build:
     t0 = time.perf_counter()
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / name) for name in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+                      for name, obj in zip(SOURCES, objs)])
+            lib = os.path.join(tmp, "lib.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+            os.replace(lib, target)
     _loaded = Build(load(target), target, time.perf_counter() - t0)
     return _loaded
 

@@ -1,15 +1,17 @@
-"""K4 wrapper: last columns of a batch of GLOBAL problems
-(``csrc/lastcols.cu``), and the hb_sum split merge of a Hirschberg level.
+"""K4 and K5L wrappers: last columns of a batch of GLOBAL problems, linear
+(``csrc/lastcols.cu``) and affine (``csrc/lastcols_affine.cu``), and the
+split merges of a level: hb_sum (Hirschberg) and the Myers-Miller merge.
 
-On a CPU tensor :func:`last_cols` runs the plain version (:func:`plain`,
-``engine.batch.last_cols_batch`` in the kernel's layout); on a CUDA tensor
-it launches the kernel.
+On a CPU tensor :func:`last_cols` and :func:`last_cols_affine` run the
+plain versions (:func:`plain`, ``engine.batch.last_cols_batch``, and
+:func:`plain_affine`, ``engine.batch.last_cols_batch_affine``, in the
+kernels' layout); on a CUDA tensor they launch the kernels.
 """
 from __future__ import annotations
 
 import torch
 
-from anyseq_tpu_torch.core.types import LinearScoring
+from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring
 from anyseq_tpu_torch.engine import batch
 from anyseq_tpu_torch.kernels import _build
 from anyseq_tpu_torch.kernels.wavefront import STRIP
@@ -21,6 +23,15 @@ def plain(q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
     rows = torch.arange(q.shape[1], device=q.device)[None, :]
     ms = ms.to(device=q.device, dtype=torch.int64)[:, None]
     return torch.where(rows < ms, cols, 0).contiguous()
+
+
+def plain_affine(q, s, ms, ns, sc: AffineScoring, sgaps):
+    """The plain version of the affine kernel, on any device, in its
+    layout."""
+    rows = torch.arange(q.shape[1], device=q.device)[None, :]
+    inside = rows < ms.to(device=q.device, dtype=torch.int64)[:, None]
+    return tuple(torch.where(inside, c.T, 0).contiguous() for c in
+                 batch.last_cols_batch_affine(q, s, ms, ns, sc, sgaps))
 
 
 def _check(q, s, ms, ns) -> None:
@@ -46,17 +57,24 @@ def last_cols(q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
     return launch(_build.library(), q, s, ms, ns, sc)
 
 
+def _strips(ms, ns):
+    """The kernels' int32 lengths, and the ticket list of all strips of all
+    problems: (ms, ns, strip_start (B + 1,) prefix sums, total)."""
+    i32 = {"dtype": torch.int32, "device": ms.device}
+    ms = ms.to(**i32).contiguous()
+    ns = ns.to(**i32).contiguous()
+    strips = torch.where(ms > 0, (ns + STRIP - 1) // STRIP, 0)
+    strip_start = torch.zeros(ms.shape[0] + 1, **i32)
+    strip_start[1:] = torch.cumsum(strips, 0)
+    return ms, ns, strip_start, int(strip_start[-1])
+
+
 def launch(lib, q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
     """Launch the kernel of `lib`, wherever the tensors lie."""
     B, M = q.shape
     dev = q.device
     i32 = {"dtype": torch.int32, "device": dev}
-    ms = ms.to(**i32).contiguous()
-    ns = ns.to(**i32).contiguous()
-    strips = torch.where(ms > 0, (ns + STRIP - 1) // STRIP, 0)
-    strip_start = torch.zeros(B + 1, **i32)
-    strip_start[1:] = torch.cumsum(strips, 0)
-    total = int(strip_start[-1])
+    ms, ns, strip_start, total = _strips(ms.to(dev), ns.to(dev))
     cols = torch.zeros((B, M), **i32)
     ticket = torch.zeros(1, **i32)
     flags = torch.zeros(max(total, 1), **i32)
@@ -70,6 +88,48 @@ def launch(lib, q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
     _build.check(err, "lastcols")
     _build.launches["lastcols"] += 1
     return cols
+
+
+def last_cols_affine(q, s, ms, ns, sc: AffineScoring, sgaps):
+    """((B, M), (B, M)) int32: [b, i] = H_b[i][ns[b] - 1] and
+    E_b[i][ns[b] - 1] for i < ms[b], 0 beyond; problem b's top row
+    continues a paid gap run where sgaps[b].
+
+    q: (B, M) uint8, s: (B, N) uint8, ms/ns: (B,) lengths >= 1, sgaps:
+    (B,) bool."""
+    _check(q, s, ms, ns)
+    if sgaps.shape != ms.shape:
+        raise ValueError("batch sizes disagree")
+    if q.device.type == "cpu":
+        return plain_affine(q, s, ms, ns, sc, sgaps)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return launch_affine(_build.library(), q, s, ms, ns, sc, sgaps)
+
+
+def launch_affine(lib, q, s, ms, ns, sc: AffineScoring, sgaps):
+    """Launch the affine kernel of `lib`, wherever the tensors lie."""
+    B, M = q.shape
+    dev = q.device
+    i32 = {"dtype": torch.int32, "device": dev}
+    ms, ns, strip_start, total = _strips(ms.to(dev), ns.to(dev))
+    sgaps = sgaps.to(device=dev, dtype=torch.bool).contiguous()
+    cols = torch.zeros((B, M), **i32)
+    cols_e = torch.zeros((B, M), **i32)
+    ticket = torch.zeros(1, **i32)
+    flags = torch.zeros(max(total, 1), **i32)
+    bcols = torch.empty(max(total, 1) * M, **i32)
+    bcols_e = torch.empty(max(total, 1) * M, **i32)
+    err = lib.anyseq_lastcols_affine(
+        q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0), ms.data_ptr(),
+        ns.data_ptr(), sgaps.data_ptr(), strip_start.data_ptr(), B, total,
+        sc.match, sc.mismatch, sc.gap_open, sc.gap_extend, ticket.data_ptr(),
+        bcols.data_ptr(), bcols_e.data_ptr(), M, flags.data_ptr(),
+        cols.data_ptr(), cols_e.data_ptr(), M, _build.stream(dev),
+    )
+    _build.check(err, "lastcols_affine")
+    _build.launches["lastcols_affine"] += 1
+    return cols, cols_e
 
 
 def hb_merge(L, R, hs, mids, rights, g: int):
@@ -95,3 +155,45 @@ def hb_merge(L, R, hs, mids, rights, g: int):
     best = F.max(1).values
     k = torch.where(F == best[:, None], x, Mb + 1).min(1).values - 1
     return k, best
+
+
+def mm_merge(HL, EL, HR, ER, hs, mids, rights, sc: AffineScoring, sgaps,
+             egaps):
+    """The Myers-Miller merge of one level, P parts at once, in int64.
+
+    HL, EL / HR, ER: (P, Mb) H and E last columns of the left halves and
+    of the reversed right halves; hs, mids, rights: (P,) part heights,
+    left and right half widths; sgaps / egaps: (P,) the parts' start- and
+    end-in-gap flags. Over k in [-1, h-1], with x = k + 1:
+
+      type 1 (the cut crossed in state H):  HL[k] + HR[h-2-k]
+      type 2 (one gap run spans the cut):   EL[k] + ER[h-2-k] - gap_open
+
+    where the edges k = -1 and k = h-1 take the all-gap score of the empty
+    half, without gap_open where the part's own flag says the run is paid.
+    Returns (k, crosses_in_gap, score) per part: ties go to the smallest
+    k, and type 1 wins equal bests."""
+    P, Mb = HL.shape
+    dev = HL.device
+    go, ge = sc.gap_open, sc.gap_extend
+    i64 = torch.int64
+    h = hs.to(device=dev, dtype=i64)[:, None]
+    x = torch.arange(Mb + 1, device=dev)[None, :]          # x = k + 1
+    edge_l = (mids.to(device=dev, dtype=i64) * ge + torch.where(
+        sgaps.to(device=dev, dtype=torch.bool), 0, go))[:, None]
+    edge_r = (rights.to(device=dev, dtype=i64) * ge + torch.where(
+        egaps.to(device=dev, dtype=torch.bool), 0, go))[:, None]
+    li = (x - 1).clamp(0, Mb - 1).expand(P, -1)
+    ri = (h - 1 - x).clamp(0, Mb - 1)
+    best, args = [], []
+    for left, right, extra in ((HL, HR, 0), (EL, ER, -go)):
+        lv = torch.where(x == 0, edge_l, left.to(i64).gather(1, li))
+        rv = torch.where(x == h, edge_r, right.to(i64).gather(1, ri))
+        t = torch.where(x > h, torch.iinfo(i64).min // 2, lv + rv + extra)
+        top = t.max(1).values
+        best.append(top)
+        args.append(torch.where(t == top[:, None], x, Mb + 1).min(1).values
+                    - 1)
+    cross = best[1] > best[0]
+    return (torch.where(cross, args[1], args[0]), cross,
+            torch.where(cross, best[1], best[0]))

@@ -1,21 +1,27 @@
-"""K1/K2 wrapper: the single-pair DP sweep (``csrc/wavefront.cu``).
+"""K1/K2 and K5/K5p wrappers: the single-pair DP sweep, linear
+(``csrc/wavefront.cu``) or affine (``csrc/wavefront_affine.cu``), chosen
+by the scoring's type.
 
 :func:`score` returns the output dict of ``engine.linmem.score_rows``
 (``last_row``, ``last_col``, ``best``; with ``emit_preds`` also ``preds``,
-the packed codes of ``linmem.pack_codes``). On a CPU tensor it runs the
-plain version (:data:`plain`, :data:`plain_preds`); on a CUDA tensor it
-launches the kernel.
+the packed codes of ``linmem.pack_codes`` or, affine,
+``affine.pack_codes4``; affine with ``emit_col_e`` also ``last_col_e``).
+On a CPU tensor it runs the plain version (:data:`plain`,
+:data:`plain_preds`, :data:`plain_affine`, :data:`plain_affine_preds`);
+on a CUDA tensor it launches the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from anyseq_tpu_torch.core.types import LinearScoring, Mode
-from anyseq_tpu_torch.engine import linmem
+from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+from anyseq_tpu_torch.engine import affine, linmem
 from anyseq_tpu_torch.kernels import _build
 
 plain = linmem.score_rows
 plain_preds = linmem.score_rows_with_preds
+plain_affine = affine.score_rows_affine
+plain_affine_preds = affine.score_rows_affine_with_preds
 
 STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh)
 MODE_CODE = {Mode.GLOBAL: 0, Mode.SEMIGLOBAL: 1, Mode.LOCAL: 2}
@@ -32,14 +38,30 @@ def _check(q: torch.Tensor, s: torch.Tensor) -> None:
         raise ValueError("query and subject must be on one device")
 
 
-def score(q, s, mode: Mode, sc: LinearScoring, emit_preds: bool = False):
-    """DP sweep of query q against subject s (1-D uint8 tensors)."""
+def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
+          emit_preds: bool = False, start_gap: bool = False,
+          emit_col_e: bool = False):
+    """DP sweep of query q against subject s (1-D uint8 tensors).
+    ``start_gap`` and ``emit_col_e`` are affine options (see
+    ``affine.score_rows_affine``); ``start_gap`` runs without preds."""
     mode = Mode.parse(mode)
     _check(q, s)
+    is_affine = isinstance(sc, AffineScoring)
+    if not is_affine and (start_gap or emit_col_e):
+        raise ValueError("start_gap and emit_col_e need AffineScoring")
+    if start_gap and (emit_preds or mode is not Mode.GLOBAL):
+        raise ValueError("start_gap is a GLOBAL score-only option")
     if q.device.type == "cpu":
+        if is_affine:
+            if emit_preds:
+                return plain_affine_preds(q, s, mode, sc)
+            return plain_affine(q, s, mode, sc, start_gap, emit_col_e)
         return (plain_preds if emit_preds else plain)(q, s, mode, sc)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if is_affine:
+        return launch_affine(_build.library(), q, s, mode, sc, emit_preds,
+                             start_gap, emit_col_e)
     return launch(_build.library(), q, s, mode, sc, emit_preds)
 
 
@@ -80,6 +102,43 @@ def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
                     "wavefront_score"] += 1
     outs = {"last_row": last_row, "last_col": last_col,
             "best": reduce_best(bests)}
+    if emit_preds:
+        outs["preds"] = preds
+    return outs
+
+
+def launch_affine(lib, q, s, mode: Mode, sc: AffineScoring, emit_preds: bool,
+                  start_gap: bool, emit_col_e: bool):
+    """Launch the affine kernel of `lib` on q and s, wherever they lie."""
+    m, n = int(q.shape[0]), int(s.shape[0])
+    strips = -(-n // STRIP)
+    i32 = {"dtype": torch.int32, "device": q.device}
+    ticket = torch.zeros(1, **i32)
+    flags = torch.zeros(strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
+    bcols_e = torch.empty(max(strips - 1, 1) * m, **i32)
+    last_row = torch.empty(n, **i32)
+    last_col = torch.empty(m, **i32)
+    last_col_e = torch.empty(m, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    pred_stride = -(-n // affine.CODES4_PER_WORD)
+    preds = torch.empty((m, pred_stride), **i32) if emit_preds else None
+    err = lib.anyseq_wavefront_affine(
+        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
+        sc.gap_extend, MODE_CODE[mode], int(start_gap), int(emit_preds),
+        ticket.data_ptr(), bcols.data_ptr(), bcols_e.data_ptr(),
+        flags.data_ptr(), last_row.data_ptr(), last_col.data_ptr(),
+        last_col_e.data_ptr(), bests.data_ptr(),
+        preds.data_ptr() if emit_preds else None, pred_stride,
+        _build.stream(q.device),
+    )
+    _build.check(err, "wavefront_affine")
+    _build.launches["wavefront_affine_preds" if emit_preds else
+                    "wavefront_affine_score"] += 1
+    outs = {"last_row": last_row, "last_col": last_col,
+            "best": reduce_best(bests)}
+    if emit_col_e:
+        outs["last_col_e"] = last_col_e
     if emit_preds:
         outs["preds"] = preds
     return outs

@@ -9,15 +9,19 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    nvcc build of the kernels from ``anyseq_tpu_torch/kernels/csrc/``.
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
-   times.
-3. The main path through the public API with ``device="cuda"``:
+   times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1.
+3. The main path through the public API with ``device="cuda"``, linear:
    ``align_score`` 1k global, ``align_full_tb`` 10k local, ``align_score``
    100k local and ``align`` 100k semiglobal (which ``traceback="auto"``
-   sends to Hirschberg), each with its wall time, GCUPS and kernel
-   launches; every kernel must have launched. The 100k alignment is
-   rescored from its strings and must equal its score and ``align_score``.
-   Small inputs (the golden corpus and a random pair) must give the same
-   results on the card as the plain versions on the CPU.
+   sends to Hirschberg); affine: ``align_score`` 100k local,
+   ``align_full_tb`` 10k global and ``align`` 100k semiglobal (Myers-Miller);
+   each with its wall time, GCUPS and kernel launches. The launch counts
+   are set to 0 before each of the two paths and read after it: every
+   kernel of the path must have launched. Both 100k alignments are
+   rescored from their strings and must equal their score and
+   ``align_score``. Small inputs (the golden corpus and a random pair,
+   both schemes) must give the same results on the card as the plain
+   versions on the CPU.
 4. Each kernel against its plain version again, on the very inputs the
    main path gave it in phase 3 (kept as they passed), bit for bit.
 5. A JSON line of the kernels, the card's line, and the final JSON line.
@@ -28,6 +32,7 @@ run outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -40,16 +45,28 @@ import torch
 SEED = 2024
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
-    # name: (source, the TPU kernel it replaces)
+    # name: (source, the TPU kernel it replaces, the main path that runs it)
     "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
-                        "anyseq_tpu/kernels/band.py:1336"),
+                        "anyseq_tpu/kernels/band.py:1336", "linear"),
     "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
-                        "anyseq_tpu/kernels/band.py:1336"),
+                        "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
-             "anyseq_tpu/engine/device_tb.py:405"),
+             "anyseq_tpu/engine/device_tb.py:405", "linear"),
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
-                 "anyseq_tpu/kernels/band.py:1677"),
+                 "anyseq_tpu/kernels/band.py:1677", "linear"),
+    "wavefront_affine_score": (
+        "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
+        "anyseq_tpu/kernels/band.py:1336", "affine"),
+    "wavefront_affine_preds": (
+        "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
+        "anyseq_tpu/kernels/band.py:1336", "affine"),
+    "lastcols_affine": ("anyseq_tpu_torch/kernels/csrc/lastcols_affine.cu",
+                        "anyseq_tpu/kernels/band.py:1677", "affine"),
+    "walk_affine": ("anyseq_tpu_torch/kernels/csrc/walk_affine.cu",
+                    "anyseq_tpu/engine/device_tb.py:352", "affine"),
 }
+# the affine scoring of the JAX package's bench suite (bench/suite.py)
+AFFINE = (2, -1, -3, -1)
 
 
 def check(cond: bool, what: str) -> None:
@@ -124,18 +141,36 @@ def compare(label, kernel, plain, reps=5):
 
 
 def rescore(aln, sc) -> int:
-    total = 0
+    """The score of an alignment's strings. Affine: each maximal run of
+    gaps in one sequence pays gap_open once; a gap in the other sequence
+    right after it starts a new run (in this Gotoh form E opens from T,
+    which includes F, and F from H, which includes E)."""
+    affine = hasattr(sc, "gap_open")
+    total, run = 0, None
     for cq, cs in zip(*aln.compact()):
-        if cq == "_" or cs == "_":
-            total += sc.gap
-        else:
+        side = "q" if cq == "_" else "s" if cs == "_" else None
+        if side is None:
             total += sc.match if cq == cs else sc.mismatch
+        elif affine:
+            total += sc.gap_extend + (0 if side == run else sc.gap_open)
+        else:
+            total += sc.gap
+        run = side
     return total
+
+
+def random_batch(rng, dev, B, M, N, lo=1):
+    """B random problems of up to M x N symbols and their lengths."""
+    q3 = torch.from_numpy(rng.integers(65, 69, (B, M), dtype=np.uint8))
+    s3 = torch.from_numpy(rng.integers(65, 69, (B, N), dtype=np.uint8))
+    ms_ = torch.from_numpy(rng.integers(lo, M + 1, B))
+    ns_ = torch.from_numpy(rng.integers(lo, N + 1, B))
+    return q3.to(dev), s3.to(dev), ms_.to(dev), ns_.to(dev)
 
 
 def phase2(rng, errors):
     """Each kernel's wrapper on CUDA tensors against its plain version."""
-    from anyseq_tpu_torch.core.types import LinearScoring, Mode
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.engine import batch, linmem
     from anyseq_tpu_torch.kernels import lastcols, walk, wavefront
 
@@ -178,10 +213,7 @@ def phase2(rng, errors):
 
     # K4: a ragged batch of 64 halves
     B, M, N = 64, 1500, 3000
-    q3 = torch.from_numpy(rng.integers(65, 69, (B, M), dtype=np.uint8)).to(dev)
-    s3 = torch.from_numpy(rng.integers(65, 69, (B, N), dtype=np.uint8)).to(dev)
-    ms_ = torch.from_numpy(rng.integers(100, M + 1, B)).to(dev)
-    ns_ = torch.from_numpy(rng.integers(100, N + 1, B)).to(dev)
+    q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N, lo=100)
     err, _, _ = compare(f"phase2 K4 lastcols {B} halves up to {M}x{N}",
                         lambda: lastcols.last_cols(q3, s3, ms_, ns_, sc),
                         lambda: lastcols.plain(q3, s3, ms_, ns_, sc))
@@ -189,10 +221,7 @@ def phase2(rng, errors):
 
     # K3 batched: 64 terminal stripes
     B, M, N = 64, 256, 256
-    q3 = torch.from_numpy(rng.integers(65, 69, (B, M), dtype=np.uint8)).to(dev)
-    s3 = torch.from_numpy(rng.integers(65, 69, (B, N), dtype=np.uint8)).to(dev)
-    ms_ = torch.from_numpy(rng.integers(1, M + 1, B)).to(dev)
-    ns_ = torch.from_numpy(rng.integers(1, N + 1, B)).to(dev)
+    q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N)
     words, _ = batch.preds_batch(q3, s3, ms_, ns_, sc)
     ends = (torch.stack([ms_, ns_], 1) - 1).to(torch.int32)
     args = (words, q3, s3, ends, Mode.GLOBAL)
@@ -200,80 +229,187 @@ def phase2(rng, errors):
                         lambda: walk.walk(*args), lambda: walk.plain(*args))
     record("walk", err)
 
+    asc = AffineScoring(*AFFINE)
+    # K5: 3 modes at a ragged 3000 x 5000, and the Myers-Miller half sweep
+    # (GLOBAL, start_gap, E last column)
+    qb, sb = related_pair(rng, 3000)
+    q, s = dev_u8(qb), dev_u8(sb + related_pair(rng, 5000 - len(sb))[0])
+    for mode, sg in ((Mode.LOCAL, False), (Mode.GLOBAL, False),
+                     (Mode.SEMIGLOBAL, False), (Mode.GLOBAL, True)):
+        err, _, _ = compare(
+            f"phase2 K5 wavefront_affine_score {mode.value} start_gap={sg} "
+            f"{q.numel()}x{s.numel()}",
+            lambda: wavefront.score(q, s, mode, asc, start_gap=sg,
+                                    emit_col_e=True),
+            lambda: wavefront.plain_affine(q, s, mode, asc, sg, True))
+        record("wavefront_affine_score", err)
+
+    # K5p + K6: affine full traceback, 3 modes at about 2000 x 3000
+    qb, sb = related_pair(rng, 2000)
+    q, s = dev_u8(qb), dev_u8(sb + related_pair(rng, 3000 - len(sb))[0])
+    m, n = q.numel(), s.numel()
+    for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
+        err, _, _ = compare(
+            f"phase2 K5p wavefront_affine_preds {mode.value} {m}x{n}",
+            lambda: wavefront.score(q, s, mode, asc, emit_preds=True),
+            lambda: wavefront.plain_affine_preds(q, s, mode, asc))
+        record("wavefront_affine_preds", err)
+        outs = wavefront.score(q, s, mode, asc, emit_preds=True)
+        end = linmem.extract_end(outs, m, n, mode)[None, 1:]
+        no_gap = torch.zeros(1, dtype=torch.bool, device=dev)
+        args = (outs["preds"][None], q[None], s[None], end, mode, no_gap,
+                no_gap)
+        err, _, _ = compare(
+            f"phase2 K6 walk_affine {mode.value} 1 problem {m}x{n}",
+            lambda: walk.walk_affine(*args), lambda: walk.plain_affine(*args))
+        record("walk_affine", err)
+
+    # K5L: 64 ragged halves with mixed start-gap flags
+    B, M, N = 64, 1500, 3000
+    q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N, lo=100)
+    sg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    err, _, _ = compare(
+        f"phase2 K5L lastcols_affine {B} halves up to {M}x{N}",
+        lambda: lastcols.last_cols_affine(q3, s3, ms_, ns_, asc, sg),
+        lambda: lastcols.plain_affine(q3, s3, ms_, ns_, asc, sg))
+    record("lastcols_affine", err)
+
+    # K6 batched: 64 terminal stripes with mixed start- and end-gap flags
+    B, M, N = 64, 256, 256
+    q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N)
+    sg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    eg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    words, _, _ = batch.preds_batch_affine(q3, s3, ms_, ns_, asc, sg)
+    ends = (torch.stack([ms_, ns_], 1) - 1).to(torch.int32)
+    args = (words, q3, s3, ends, Mode.GLOBAL, sg, eg)
+    err, _, _ = compare(f"phase2 K6 walk_affine {B} stripes up to {M}x{N}",
+                        lambda: walk.walk_affine(*args),
+                        lambda: walk.plain_affine(*args))
+    record("walk_affine", err)
+
+
+# The launch function of each kernel wrapper module (K1/K2 share one, as
+# do K5/K5p); the plain version takes the same arguments after the library.
+LAUNCHERS = {
+    "wavefront": ("wavefront", "launch"),
+    "wavefront_affine": ("wavefront", "launch_affine"),
+    "walk": ("walk", "launch"),
+    "walk_affine": ("walk", "launch_affine"),
+    "lastcols": ("lastcols", "launch"),
+    "lastcols_affine": ("lastcols", "launch_affine"),
+}
+
+
+def wrapper_module(fn: str):
+    return importlib.import_module(
+        f"anyseq_tpu_torch.kernels.{LAUNCHERS[fn][0]}")
+
+
+def launcher(fn: str):
+    return getattr(wrapper_module(fn), LAUNCHERS[fn][1])
+
+
+def plain_of(fn: str, args):
+    """The plain version's output on the arguments of a kept launch."""
+    mod = wrapper_module(fn)
+    if fn == "wavefront":
+        _, q, s, mode, sc, emit_preds = args
+        return (mod.plain_preds if emit_preds else mod.plain)(q, s, mode, sc)
+    if fn == "wavefront_affine":
+        _, q, s, mode, sc, emit_preds, start_gap, emit_col_e = args
+        if emit_preds:
+            return mod.plain_affine_preds(q, s, mode, sc)
+        return mod.plain_affine(q, s, mode, sc, start_gap, emit_col_e)
+    return getattr(mod, "plain_affine" if fn.endswith("_affine")
+                   else "plain")(*args[1:])
+
 
 @contextlib.contextmanager
 def kept_launches(kept: list, call: list):
-    """Keep (call[0], kernel module, arguments) of every kernel launch made
+    """Keep (call[0], launcher, arguments) of every kernel launch made
     inside the block; `call[0]` names the public call being driven."""
-    from anyseq_tpu_torch.kernels import lastcols, walk, wavefront
+    real = {fn: launcher(fn) for fn in LAUNCHERS}
 
-    real = {mod: mod.launch for mod in (wavefront, walk, lastcols)}
-
-    def keeping(mod):
+    def keeping(fn):
         def launch(*args):
-            kept.append((call[0], mod, args))
-            return real[mod](*args)
+            kept.append((call[0], fn, args))
+            return real[fn](*args)
         return launch
 
-    for mod in real:
-        mod.launch = keeping(mod)
+    for fn, (_, attr) in LAUNCHERS.items():
+        setattr(wrapper_module(fn), attr, keeping(fn))
     try:
         yield
     finally:
-        for mod, fn in real.items():
-            mod.launch = fn
+        for fn, (_, attr) in LAUNCHERS.items():
+            setattr(wrapper_module(fn), attr, real[fn])
 
 
 def phase3(rng, kept):
-    """The main path through the public API; returns the launch counts."""
+    """The main path through the public API, one path per gap scheme, each
+    driven with every launch count set to 0 just before it and read just
+    after; returns each kernel's count from the path that runs it."""
     import anyseq_tpu_torch as pt
     from anyseq_tpu_torch.kernels import _build
 
     sc = pt.LinearScoring()
+    asc = pt.AffineScoring(*AFFINE)
     pairs = {n: related_pair(rng, n) for n in (1000, 10_000, 100_000)}
-    calls = (
-        ("align_score", 1000, "global",
-         lambda q, s: pt.align_score(q, s, "global", device="cuda")),
-        ("align_full_tb", 10_000, "local",
-         lambda q, s: pt.align_full_tb(q, s, "local", device="cuda")),
-        ("align_score", 100_000, "local",
-         lambda q, s: pt.align_score(q, s, "local", device="cuda")),
-        ("align", 100_000, "semiglobal",
-         lambda q, s: pt.align(q, s, "semiglobal", device="cuda")),
-    )
+    paths = {
+        "linear": (
+            ("align_score", 1000, "global", sc),
+            ("align_full_tb", 10_000, "local", sc),
+            ("align_score", 100_000, "local", sc),
+            ("align", 100_000, "semiglobal", sc),
+        ),
+        "affine": (
+            ("align_score", 100_000, "local", asc),
+            ("align_full_tb", 10_000, "global", asc),
+            ("align", 100_000, "semiglobal", asc),
+        ),
+    }
     torch.cuda.synchronize()
     current = [None]
-    results = {}
+    results, counts = {}, {}
     with kept_launches(kept, current):
-        for k in _build.launches:
-            _build.launches[k] = 0
-        for name, n, mode, fn in calls:
-            q, s = pairs[n]
-            current[0] = (name, n, mode)
-            before = dict(_build.launches)
-            t0 = time.perf_counter()
-            out = fn(q, s)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            cells = len(q) * len(s)
-            delta = {k: v - before[k] for k, v in _build.launches.items()}
-            score = out if isinstance(out, int) else out.score
-            print(f"phase3 {name} {mode} {len(q)}x{len(s)} score={score} "
-                  f"wall_s={wall:.4f} gcups={cells / wall / 1e9:.2f} "
-                  f"launches={json.dumps(delta)}", flush=True)
-            results[(name, n, mode)] = out
-        counts = dict(_build.launches)
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} launched on the main path ({v})")
+        for path, calls in paths.items():
+            for k in _build.launches:
+                _build.launches[k] = 0
+            for name, n, mode, scoring in calls:
+                q, s = pairs[n]
+                scheme = type(scoring).__name__
+                current[0] = (name, n, mode, scheme)
+                before = dict(_build.launches)
+                t0 = time.perf_counter()
+                out = getattr(pt, name)(q, s, mode, scoring, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                cells = len(q) * len(s)
+                delta = {k: v - before[k] for k, v in _build.launches.items()
+                         if v > before[k]}
+                score = out if isinstance(out, int) else out.score
+                print(f"phase3 {name} {mode} {scheme} {len(q)}x{len(s)} "
+                      f"score={score} wall_s={wall:.4f} "
+                      f"gcups={cells / wall / 1e9:.2f} "
+                      f"launches={json.dumps(delta)}", flush=True)
+                results[current[0]] = out
+            for k, v in _build.launches.items():
+                if KERNELS[k][2] == path:
+                    counts[k] = v
+                    check(v > 0, f"kernel {k} launched on the {path} main "
+                          f"path ({v})")
 
     q, s = pairs[100_000]
-    aln = results[("align", 100_000, "semiglobal")]
-    again = pt.align_score(q, s, "semiglobal", device="cuda")
-    check(rescore(aln, sc) == aln.score == again,
-          f"100k semiglobal rescore {rescore(aln, sc)} == score {aln.score}"
-          f" == align_score {again}")
-    print(f"phase3 100k semiglobal rescored={aln.score} "
-          f"align_score={again} equal=True", flush=True)
+    for scoring in (sc, asc):
+        scheme = type(scoring).__name__
+        aln = results[("align", 100_000, "semiglobal", scheme)]
+        again = pt.align_score(q, s, "semiglobal", scoring, device="cuda")
+        got = rescore(aln, scoring)
+        check(got == aln.score == again,
+              f"100k semiglobal {scheme} rescore {got} == score "
+              f"{aln.score} == align_score {again}")
+        print(f"phase3 100k semiglobal {scheme} rescored={got} "
+              f"align_score={again} equal=True", flush=True)
     return counts
 
 
@@ -285,14 +421,16 @@ def phase3_small(rng):
     import anyseq_tpu_torch as pt
 
     q, s = related_pair(rng, 700)
-    for mode in ("global", "semiglobal", "local"):
-        for fn in (pt.align_score, pt.align_full_tb,
-                   lambda *a, **k: pt.align(*a, traceback="hirschberg", **k)):
-            a = fn(q, s, mode, device="cuda")
-            b = fn(q, s, mode, device="cpu")
-            if not isinstance(a, int):
-                a, b = dataclasses.astuple(a), dataclasses.astuple(b)
-            check(a == b, f"small {mode}: card == CPU")
+    for sc in (pt.LinearScoring(), pt.AffineScoring(*AFFINE)):
+        for mode in ("global", "semiglobal", "local"):
+            for fn in (pt.align_score, pt.align_full_tb,
+                       lambda *a, **k: pt.align(*a, traceback="hirschberg",
+                                                **k)):
+                a = fn(q, s, mode, sc, device="cuda")
+                b = fn(q, s, mode, sc, device="cpu")
+                if not isinstance(a, int):
+                    a, b = dataclasses.astuple(a), dataclasses.astuple(b)
+                check(a == b, f"small {mode} {sc}: card == CPU")
     with open(os.path.join(ROOT, "tests", "golden", "golden.json")) as f:
         golden = json.load(f)
     checked = 0
@@ -327,57 +465,85 @@ def phase3_small(rng):
 def phase4(kept, timings, errors):
     """Each kernel against its plain version on inputs the main path gave
     it in phase 3. The times reported in the JSON line are these: K1 at
-    the 100k local score, K2 and K3 at the 10k full traceback, K4 at the
-    first batched level of the 100k construction."""
-    from anyseq_tpu_torch.kernels import lastcols, walk, wavefront
+    the 100k local score, K2 and K3 at the linear 10k full traceback, K4
+    at the first batched level of the 100k construction; K5 at the
+    smallest half sweep of the affine 100k construction, K5p and K6 at the
+    affine 10k full traceback, K5L at the first batched level of the
+    affine 100k construction."""
 
-    def kept_of(call, mod):
-        return [args for c, md, args in kept if c == call and md is mod]
+    def kept_of(call, fn, pred=lambda args: True):
+        return [args for c, f, args in kept if c == call and f == fn
+                and pred(args)]
 
-    def shape(mod, args):
-        if mod is wavefront:
+    def cells(args):
+        return args[1].numel() * args[2].numel()
+
+    def shape(fn, args):
+        if fn.startswith("wavefront"):
             return f"{args[1].numel()}x{args[2].numel()}"
-        if mod is walk:
+        if fn.startswith("walk"):
             words, q, s = args[1:4]
             return f"B={words.shape[0]} {q.shape[1]}x{s.shape[1]}"
         q, s, ms, ns = args[1:5]
         return f"B={q.shape[0]} up to {int(ms.max())}x{int(ns.max())}"
 
-    def plain(mod, args):
-        if mod is wavefront:
-            _, q, s, mode, sc, emit_preds = args
-            fn = wavefront.plain_preds if emit_preds else wavefront.plain
-            return fn(q, s, mode, sc)
-        return mod.plain(*args[1:])
-
-    def run(name, tag, call, mod, args, report=False):
+    def run(name, tag, call, fn, args, report=False):
         label = f"phase4 {tag} {name} {' '.join(map(str, call))} " \
-                f"{shape(mod, args)}"
-        err, ms, plain_ms = compare(label, lambda: mod.launch(*args),
-                                    lambda: plain(mod, args), reps=3)
+                f"{shape(fn, args)}"
+        err, ms, plain_ms = compare(label, lambda: launcher(fn)(*args),
+                                    lambda: plain_of(fn, args), reps=3)
         errors[name] = max(errors.get(name, 0), err)
         if report:
             timings[name] = (ms, plain_ms)
 
-    score_1k = ("align_score", 1000, "global")
-    fulltb = ("align_full_tb", 10_000, "local")
-    score_100k = ("align_score", 100_000, "local")
-    hb = ("align", 100_000, "semiglobal")
-    k1_hb = min(kept_of(hb, wavefront),
-                key=lambda args: args[1].numel() * args[2].numel())
-    k3_hb = max(kept_of(hb, walk), key=lambda args: args[1].shape[0])
-    k4_hb = kept_of(hb, lastcols)
-    run("wavefront_score", "K1", score_1k, wavefront,
-        kept_of(score_1k, wavefront)[0])
-    run("wavefront_score", "K1", score_100k, wavefront,
-        kept_of(score_100k, wavefront)[0], report=True)
-    run("wavefront_score", "K1", hb, wavefront, k1_hb)
-    run("wavefront_preds", "K2", fulltb, wavefront,
-        kept_of(fulltb, wavefront)[0], report=True)
-    run("walk", "K3", fulltb, walk, kept_of(fulltb, walk)[0], report=True)
-    run("walk", "K3", hb, walk, k3_hb)
-    run("lastcols", "K4", hb, lastcols, k4_hb[0], report=True)
-    run("lastcols", "K4", hb, lastcols, k4_hb[-1])
+    def preds(args):
+        return args[5]
+
+    score_1k = ("align_score", 1000, "global", "LinearScoring")
+    fulltb = ("align_full_tb", 10_000, "local", "LinearScoring")
+    score_100k = ("align_score", 100_000, "local", "LinearScoring")
+    hb = ("align", 100_000, "semiglobal", "LinearScoring")
+    a_fulltb = ("align_full_tb", 10_000, "global", "AffineScoring")
+    mm = ("align", 100_000, "semiglobal", "AffineScoring")
+    k1_hb = min(kept_of(hb, "wavefront"), key=cells)
+    k3_hb = max(kept_of(hb, "walk"), key=lambda args: args[1].shape[0])
+    k4_hb = kept_of(hb, "lastcols")
+    run("wavefront_score", "K1", score_1k, "wavefront",
+        kept_of(score_1k, "wavefront")[0])
+    run("wavefront_score", "K1", score_100k, "wavefront",
+        kept_of(score_100k, "wavefront")[0], report=True)
+    run("wavefront_score", "K1", hb, "wavefront", k1_hb)
+    run("wavefront_preds", "K2", fulltb, "wavefront",
+        kept_of(fulltb, "wavefront")[0], report=True)
+    run("walk", "K3", fulltb, "walk", kept_of(fulltb, "walk")[0],
+        report=True)
+    run("walk", "K3", hb, "walk", k3_hb)
+    run("lastcols", "K4", hb, "lastcols", k4_hb[0], report=True)
+    run("lastcols", "K4", hb, "lastcols", k4_hb[-1])
+
+    k5_mm = min(kept_of(mm, "wavefront_affine"), key=cells)
+    k6_mm = max(kept_of(mm, "walk_affine"), key=lambda args: args[1].shape[0])
+    k5l_mm = kept_of(mm, "lastcols_affine")
+    run("wavefront_affine_score", "K5", mm, "wavefront_affine", k5_mm,
+        report=True)
+    run("wavefront_affine_preds", "K5p", a_fulltb, "wavefront_affine",
+        kept_of(a_fulltb, "wavefront_affine", preds)[0], report=True)
+    run("walk_affine", "K6", a_fulltb, "walk_affine",
+        kept_of(a_fulltb, "walk_affine")[0], report=True)
+    run("walk_affine", "K6", mm, "walk_affine", k6_mm)
+    run("lastcols_affine", "K5L", mm, "lastcols_affine", k5l_mm[0],
+        report=True)
+    run("lastcols_affine", "K5L", mm, "lastcols_affine", k5l_mm[-1])
+
+    # K5 alone at the affine 100k local score: the plain version would
+    # take minutes there, so only the kernel's time
+    args = kept_of(("align_score", 100_000, "local", "AffineScoring"),
+                   "wavefront_affine")[0]
+    ms = cuda_ms(lambda: launcher("wavefront_affine")(*args), 3)
+    print(f"phase4 K5 wavefront_affine_score align_score 100000 local "
+          f"AffineScoring {shape('wavefront_affine', args)} "
+          f"kernel_ms={ms:.3f} gcups={cells(args) / ms / 1e6:.2f}",
+          flush=True)
 
 
 def main() -> int:
@@ -414,7 +580,7 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": errors[name],
          "ms": round(timings[name][0], 4),
          "plain_ms": round(timings[name][1], 2)}
-        for name, (src, rep) in KERNELS.items()
+        for name, (src, rep, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,6 +20,7 @@ from conftest import mutate, random_dna
 
 MODULES = [
     "anyseq_tpu_torch",
+    "anyseq_tpu_torch.engine.affine",
     "anyseq_tpu_torch.engine.api",
     "anyseq_tpu_torch.engine.batch",
     "anyseq_tpu_torch.engine.device_tb",
@@ -68,16 +69,15 @@ def test_probes_raise_value_error():
 def test_scoring_from_reference():
     ref = anyseq_tpu.LinearScoring(3, -2, -4)
     assert pt.scoring_from_reference(ref) == pt.LinearScoring(3, -2, -4)
-    with pytest.raises(NotImplementedError):
-        pt.scoring_from_reference(anyseq_tpu.AffineScoring())
+    ref = anyseq_tpu.AffineScoring(3, -2, -5, -1)
+    assert pt.scoring_from_reference(ref) == pt.AffineScoring(3, -2, -5, -1)
+    with pytest.raises(TypeError, match="AffineScoring"):
+        pt.align_score(b"ACGT", b"ACGT", scoring=ref, device="cpu")
+    with pytest.raises(ValueError):
+        pt.AffineScoring(2, -1, 1, -1)
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.align_score(b"ACGT", b"ACGT", scoring=pt.AffineScoring(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.align(b"ACGT", b"ACGT", scoring=pt.AffineScoring(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         pt.align(b"ACGT", b"ACGT", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -99,10 +99,11 @@ def test_cpu_runs_launch_no_kernel(rng):
         _build.launches[k] = 0
     q = random_dna(rng, 700)
     s = mutate(rng, q)
-    for mode in ("global", "semiglobal", "local"):
-        pt.align_score(q, s, mode, device="cpu")
-        pt.align(q, s, mode, traceback="hirschberg", device="cpu")
-        pt.align_full_tb(q[:100], s[:120], mode, device="cpu")
+    for sc in (pt.LinearScoring(), pt.AffineScoring()):
+        for mode in ("global", "semiglobal", "local"):
+            pt.align_score(q, s, mode, sc, device="cpu")
+            pt.align(q, s, mode, sc, traceback="hirschberg", device="cpu")
+            pt.align_full_tb(q[:100], s[:120], mode, sc, device="cpu")
     assert set(_build.launches.values()) == {0}
 
 
@@ -114,9 +115,16 @@ def test_wrappers_refuse_other_devices():
     ends = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         walk.walk(words, q[None], q[None], ends, pt.Mode.GLOBAL)
+    with pytest.raises(ValueError, match="device"):
+        wavefront.score(q, q, pt.Mode.GLOBAL, pt.AffineScoring())
+    with pytest.raises(ValueError, match="device"):
+        walk.walk_affine(words, q[None], q[None], ends, pt.Mode.GLOBAL)
     ms = torch.ones(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         lastcols.last_cols(q[None], q[None], ms, ms, pt.LinearScoring())
+    with pytest.raises(ValueError, match="device"):
+        lastcols.last_cols_affine(q[None], q[None], ms, ms,
+                                  pt.AffineScoring(), ms.bool())
 
 
 def test_wrappers_check_types():
