@@ -1,22 +1,31 @@
-"""Batched row sweeps and the batched traceback walks, in plain torch.
+"""Batched row sweeps and the batched traceback walks, in plain torch,
+and the many-pair API on top of them.
 
-These are the plain versions of four kernels: :func:`last_cols_batch` of
-the linear level sweep (K4, ``kernels/lastcols.py``),
+These are the plain versions of five kernels: :func:`swarm_batch` of the
+batch sweep (K7, ``kernels/swarm.py``), :func:`last_cols_batch` of the
+linear level sweep (K4, ``kernels/lastcols.py``),
 :func:`last_cols_batch_affine` of the affine one (K5L, same module),
 :func:`walk_batch_ends` of the linear traceback walk (K3,
 ``kernels/walk.py``) and :func:`walk_batch_affine_ends` of the 3-state
 affine walk (K6, same module). :func:`preds_batch` and
 :func:`preds_batch_affine`, the terminal-stripe pred sweeps of the
 Hirschberg and Myers-Miller constructions, have no kernel: they are XLA
-scans in the JAX package too.
+scans in the JAX package too. One pair of row generators (:func:`_rows`,
+:func:`_affine_rows`) carries the recurrence for all of them.
 
 Problems are padded into (B, M) / (B, N) uint8 arrays with per-problem
 lengths ``ms`` / ``ns``. What lies past a problem's lengths is never read
 into a result: rows past ``ms[b]`` keep their carry, and a column only
 feeds the columns to its right.
+
+:func:`align_scores_batch` and :func:`align_batch` score and align many
+pairs: pairs are bucketed by padded shape, each bucket staged in bulk and
+swept by K7 in chunks sized by memory; linear alignments are walked by K3
+over K7's codes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from anyseq_tpu_torch.core.types import (
@@ -27,9 +36,13 @@ from anyseq_tpu_torch.core.types import (
     PRED_GAP_S,
     PRED_NO_GAP,
     PRED_NONE,
+    SCORE_MIN,
     AffineScoring,
+    Alignment,
     LinearScoring,
     Mode,
+    as_u8,
+    check_scoring,
 )
 from anyseq_tpu_torch.engine.affine import (
     CODES4_PER_WORD,
@@ -37,33 +50,38 @@ from anyseq_tpu_torch.engine.affine import (
     pack_codes4,
     pred_codes4,
 )
-from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD, pack_codes
+from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD, _init, pack_codes
 
 
-def _global_rows(q, s, ms, sc: LinearScoring, emit_preds: bool):
-    """GLOBAL row sweep over a batch: yields (i, row, code) per row, with
-    ``row`` already held at its carry for problems shorter than i."""
+def _rows(q, s, ms, mode: Mode, sc: LinearScoring, emit_preds: bool):
+    """Row sweep over a batch in `mode`: yields (i, row, code) per row,
+    with ``row`` already held at its carry for problems shorter than i.
+    GLOBAL boundaries are (k + 1) * gap, the other modes' 0; LOCAL clamps
+    at 0."""
     B, N = s.shape
     dev = s.device
     g = sc.gap
     jg = torch.arange(N, dtype=torch.int32, device=dev) * g
-    prev = ((torch.arange(N, dtype=torch.int32, device=dev) + 1) * g
-            ).expand(B, N)
+    prev = _init(mode, sc, torch.arange(N, dtype=torch.int32, device=dev)
+                 ).expand(B, N)
     q32 = q.to(torch.int32)
     s32 = s.to(torch.int32)
     ms = ms.to(device=dev, dtype=torch.int64)
     for i in range(int(ms.max())):
         active = (i < ms)[:, None]
-        diag = torch.cat([prev.new_full((B, 1), i * g), prev[:, :-1]], 1)
+        col_i = _init(mode, sc, i)
+        diag = torch.cat([prev.new_full((B, 1), _init(mode, sc, i - 1)),
+                          prev[:, :-1]], 1)
         qi = q32.gather(1, torch.clamp_max(ms - 1, i)[:, None])
         dsub = diag + torch.where(qi == s32, sc.match, sc.mismatch)
         cand = torch.maximum(dsub, prev + g)
-        run = torch.clamp_min(torch.cummax(cand - jg, 1).values, (i + 2) * g)
+        if mode is Mode.LOCAL:
+            cand = cand.clamp_min(0)
+        run = torch.clamp_min(torch.cummax(cand - jg, 1).values, col_i + g)
         row = run + jg
         code = None
         if emit_preds:
-            left = torch.cat([row.new_full((B, 1), (i + 1) * g),
-                              row[:, :-1]], 1)
+            left = torch.cat([row.new_full((B, 1), col_i), row[:, :-1]], 1)
             code = torch.where(
                 row == dsub, PRED_NO_GAP,
                 torch.where(row == left + g, PRED_GAP_Q,
@@ -83,7 +101,7 @@ def last_cols_batch(q, s, ms, ns, sc: LinearScoring):
     B, M = q.shape
     lastj = (ns.to(device=s.device, dtype=torch.int64) - 1)[:, None]
     cols = torch.zeros((M, B), dtype=torch.int32, device=s.device)
-    for i, row, _ in _global_rows(q, s, ms, sc, emit_preds=False):
+    for i, row, _ in _rows(q, s, ms, Mode.GLOBAL, sc, emit_preds=False):
         cols[i] = row.gather(1, lastj)[:, 0]
     return cols
 
@@ -100,7 +118,7 @@ def preds_batch(q, s, ms, ns, sc: LinearScoring):
     words = torch.zeros((B, M, -(-N // CODES_PER_WORD)), dtype=torch.int32,
                         device=s.device)
     cols = torch.zeros((M, B), dtype=torch.int32, device=s.device)
-    for i, row, code in _global_rows(q, s, ms, sc, emit_preds=True):
+    for i, row, code in _rows(q, s, ms, Mode.GLOBAL, sc, emit_preds=True):
         words[:, i] = pack_codes(code)
         cols[i] = row.gather(1, lastj)[:, 0]
     return words, cols
@@ -178,19 +196,26 @@ def preds_walk_batch(q, s, ms, ns, sc: LinearScoring):
     return oq, os_, scores
 
 
-def _global_affine_rows(q, s, ms, sc: AffineScoring, sgap, emit_preds: bool):
-    """GLOBAL Gotoh row sweep over a batch, each problem's top row
-    continuing a paid gap run where ``sgap`` (``affine.score_rows_affine``
-    start_gap): yields (i, H, E, code) per row, with H (and the F carry)
-    held for problems shorter than i."""
+def _affine_rows(q, s, ms, mode: Mode, sc: AffineScoring, sgap,
+                 emit_preds: bool):
+    """Gotoh row sweep over a batch in `mode`: yields (i, H, E, code) per
+    row, with H (and the F carry) held for problems shorter than i.
+    GLOBAL: each problem's top row continues a paid gap run where ``sgap``
+    (``affine.score_rows_affine`` start_gap). The other modes have 0
+    boundaries (``sgap`` is not read) and LOCAL clamps at 0."""
     B, N = s.shape
     dev = s.device
     go, ge = sc.gap_open, sc.gap_extend
+    glob = mode is Mode.GLOBAL
     jge = torch.arange(N, dtype=torch.int32, device=dev) * ge
-    sg = sgap.to(device=dev, dtype=torch.bool)[:, None]
     i32 = {"dtype": torch.int32, "device": dev}
-    H = ((torch.arange(N, **i32) + 1) * ge).expand(B, N) + torch.where(
-        sg, torch.zeros(1, **i32), go)
+    zero = torch.zeros((B, 1), **i32)
+    if glob:
+        sg = sgap.to(device=dev, dtype=torch.bool)[:, None]
+        H = ((torch.arange(N, **i32) + 1) * ge).expand(B, N) + torch.where(
+            sg, torch.zeros(1, **i32), go)
+    else:
+        H = torch.zeros((B, N), **i32)
     F = torch.full((B, N), NEG, **i32)
     q32 = q.to(torch.int32)
     s32 = s.to(torch.int32)
@@ -198,12 +223,15 @@ def _global_affine_rows(q, s, ms, sc: AffineScoring, sgap, emit_preds: bool):
     neg = torch.full((1,), NEG, **i32)
     for i in range(int(ms.max())):
         active = (i < ms)[:, None]
-        col_i = torch.where(sg, neg, go + (i + 1) * ge)
-        col_im1 = torch.where(sg, neg, 0 if i == 0 else go + i * ge)
+        col_i = col_im1 = zero
+        if glob:
+            col_i = torch.where(sg, neg, go + (i + 1) * ge)
+            col_im1 = torch.where(sg, neg, 0 if i == 0 else go + i * ge)
         diag = torch.cat([col_im1, H[:, :-1]], 1)
         qi = q32.gather(1, torch.clamp_max(ms - 1, i)[:, None])
         sub = torch.where(qi == s32, sc.match, sc.mismatch)
-        Hn, E, Fn, dsub = affine_row(H, F, sub, diag, col_i, jge, False, sc)
+        Hn, E, Fn, dsub = affine_row(H, F, sub, diag, col_i, jge,
+                                     mode is Mode.LOCAL, sc)
         code = None
         if emit_preds:
             h_left = torch.cat([col_i, Hn[:, :-1]], 1)
@@ -224,7 +252,8 @@ def last_cols_batch_affine(q, s, ms, ns, sc: AffineScoring, sgap):
     lastj = (ns.to(device=s.device, dtype=torch.int64) - 1)[:, None]
     cols = torch.zeros((M, B), dtype=torch.int32, device=s.device)
     cols_e = torch.full((M, B), NEG, dtype=torch.int32, device=s.device)
-    for i, H, E, _ in _global_affine_rows(q, s, ms, sc, sgap, False):
+    for i, H, E, _ in _affine_rows(q, s, ms, Mode.GLOBAL, sc, sgap,
+                                    False):
         cols[i] = H.gather(1, lastj)[:, 0]
         cols_e[i] = E.gather(1, lastj)[:, 0]
     return cols, cols_e
@@ -242,7 +271,8 @@ def preds_batch_affine(q, s, ms, ns, sc: AffineScoring, sgap):
                         device=s.device)
     cols = torch.zeros((M, B), dtype=torch.int32, device=s.device)
     cols_e = torch.full((M, B), NEG, dtype=torch.int32, device=s.device)
-    for i, H, E, code in _global_affine_rows(q, s, ms, sc, sgap, True):
+    for i, H, E, code in _affine_rows(q, s, ms, Mode.GLOBAL, sc, sgap,
+                                       True):
         words[:, i] = pack_codes4(code)
         cols[i] = H.gather(1, lastj)[:, 0]
         cols_e[i] = E.gather(1, lastj)[:, 0]
@@ -334,3 +364,259 @@ def preds_walk_batch_affine(q, s, ms, ns, sc: AffineScoring, sgap, egap):
     eg = egap.to(device=cols.device, dtype=torch.bool)
     scores = torch.where(eg, cols_e[last, b], cols[last, b])
     return oq, os_, scores
+
+
+def swarm_batch(q, s, ms, ns, mode: Mode, sc, sgaps=None,
+                need_pos: bool = True, emit_preds: bool = False):
+    """The batch sweep of K7 (``kernels/swarm.py``): B independent
+    problems in `mode`, linear or affine.
+
+    q: (B, M) uint8, s: (B, N) uint8, ms/ns: (B,) lengths >= 1; sgaps:
+    (B,) start-gap flags of affine GLOBAL problems (all False when None).
+    Returns the per-problem contract of the JAX package's
+    ``swarm.score_pairs_swarm``, int32 on the inputs' device:
+
+      last_rows (B, N)  H[m-1][0..n)
+      last_cols (B, M)  H[0..m)[n-1]
+      best      (B, 3)  GLOBAL (H[m-1][n-1], m-1, n-1); SEMIGLOBAL (max of
+                        the last column, 0, 0); LOCAL (score, i, j) of the
+                        first maximum in row-major order, (score, 0, 0)
+                        without ``need_pos``
+      preds     (B, M, ceil(N/16))  with ``emit_preds`` (linear only): the
+                        2-bit codes of ``linmem.pack_codes``
+
+    Every entry past a problem's lengths is 0."""
+    mode = Mode.parse(mode)
+    affine = isinstance(sc, AffineScoring)
+    B, M = q.shape
+    N = s.shape[1]
+    dev = s.device
+    i32 = {"dtype": torch.int32, "device": dev}
+    ms = ms.to(device=dev, dtype=torch.int64)
+    ns = ns.to(device=dev, dtype=torch.int64)
+    jmask = torch.arange(N, device=dev)[None, :] < ns[:, None]
+    imask = torch.arange(M, device=dev)[None, :] < ms[:, None]
+    lastj = (ns - 1)[:, None]
+    last_cols = torch.zeros((B, M), **i32)
+    preds = (torch.zeros((B, M, -(-N // CODES_PER_WORD)), **i32)
+             if emit_preds else None)
+    vmax = torch.full((B,), SCORE_MIN, **i32)
+    vi = torch.zeros(B, dtype=torch.int64, device=dev)
+    vj = torch.zeros(B, dtype=torch.int64, device=dev)
+    if affine:
+        if sgaps is None:
+            sgaps = torch.zeros(B, dtype=torch.bool, device=dev)
+        rows = ((i, H, None) for i, H, _, _ in
+                _affine_rows(q, s, ms, mode, sc, sgaps, False))
+    else:
+        rows = _rows(q, s, ms, mode, sc, emit_preds)
+    for i, row, code in rows:
+        last_cols[:, i] = row.gather(1, lastj)[:, 0]
+        if emit_preds:
+            live = jmask & (i < ms)[:, None]
+            preds[:, i] = pack_codes(torch.where(live, code, PRED_NONE))
+        if mode is Mode.LOCAL:
+            masked = torch.where(jmask, row, SCORE_MIN)
+            rarg = torch.argmax(masked, 1)        # first maximum of the row
+            rmax = masked.gather(1, rarg[:, None])[:, 0]
+            take = (i < ms) & (rmax > vmax)
+            vmax = torch.where(take, rmax, vmax)
+            vi = torch.where(take, i, vi)
+            vj = torch.where(take, rarg, vj)
+    last_cols = torch.where(imask, last_cols, 0)
+    zeros = torch.zeros_like(ms)
+    if mode is Mode.GLOBAL:
+        best = [last_cols.gather(1, (ms - 1)[:, None])[:, 0], ms - 1, ns - 1]
+    elif mode is Mode.SEMIGLOBAL:
+        best = [torch.where(imask, last_cols, SCORE_MIN).max(1).values,
+                zeros, zeros]
+    elif need_pos:
+        best = [vmax.clamp_min(0), vi, vj]
+    else:
+        best = [vmax.clamp_min(0), zeros, zeros]
+    outs = {"last_rows": torch.where(jmask, row, 0),
+            "last_cols": last_cols,
+            "best": torch.stack([b.to(torch.int32) for b in best], 1)}
+    if emit_preds:
+        outs["preds"] = preds
+    return outs
+
+
+def extract_batch(res, ms, ns, mode: Mode):
+    """(B,) int32 scores and (B, 2) int32 end cells from the outputs of
+    :func:`swarm_batch` (the port of the JAX package's
+    ``swarm.extract_batch``: the candidates of
+    ``linmem.extract_end``, in the same order and with the same ties).
+    SEMIGLOBAL: the last row, with the j = -1 boundary first, then the
+    last column, with the i = -1 boundary first; a boundary wins ties, so
+    ``ej = -1`` where the row's maximum is <= 0."""
+    mode = Mode.parse(mode)
+    lr, lc = res["last_rows"], res["last_cols"]
+    dev = lr.device
+    ms = ms.to(device=dev, dtype=torch.int64)
+    ns = ns.to(device=dev, dtype=torch.int64)
+    if mode is Mode.GLOBAL:
+        score = lc.gather(1, (ms - 1)[:, None])[:, 0]
+        return score, torch.stack([ms - 1, ns - 1], 1).to(torch.int32)
+    if mode is Mode.LOCAL:
+        return res["best"][:, 0], res["best"][:, 1:3]
+
+    def first_max(x, lengths):
+        x = torch.where(torch.arange(x.shape[1], device=dev)[None, :]
+                        < lengths[:, None], x, SCORE_MIN)
+        arg = torch.argmax(x, 1)
+        return x.gather(1, arg[:, None])[:, 0], arg
+
+    rmax, rarg = first_max(lr, ns)
+    cmax, carg = first_max(lc, ms)
+    score = rmax.clamp_min(0)
+    ei = ms - 1
+    ej = torch.where(rmax <= 0, -1, rarg)
+    take = cmax.clamp_min(0) > score
+    score = torch.where(take, cmax, score)
+    ei = torch.where(take, carg, ei)
+    ej = torch.where(take, ns - 1, ej)
+    return score, torch.stack([ei, ej], 1).to(torch.int32)
+
+
+# Problems of one K7 launch at most: score-only, and with codes (as the
+# JAX package's swarm route chunks them); fewer where a chunk's device
+# memory would pass CHUNK_BYTES.
+SCORE_CHUNK = 8192
+ALIGN_CHUNK = 4096
+CHUNK_BYTES = 1 << 30
+
+
+def _bucket(lens: np.ndarray, mult: int = 256) -> np.ndarray:
+    return np.maximum(mult, -(-lens // mult) * mult)
+
+
+def _flat(seqs):
+    """All sequences of one side joined into one uint8 array (with a
+    bucket's width of zeros after the last), their offsets and lengths."""
+    raw = [x if isinstance(x, bytes) else as_u8(x).tobytes() for x in seqs]
+    lens = np.fromiter(map(len, raw), np.int64, len(raw))
+    if (lens == 0).any():
+        raise ValueError("empty sequences are not supported")
+    offs = np.zeros(len(raw), np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    tail = bytes(int(_bucket(lens.max())))
+    return np.frombuffer(b"".join(raw) + tail, np.uint8), offs, lens
+
+
+def _stage(flat, idx, width: int) -> np.ndarray:
+    """(len(idx), width) uint8: row r holds sequence idx[r], then whatever
+    bytes follow it in the joined array (real symbols: the sweeps and
+    walks never read past a problem's lengths into a result)."""
+    data, offs, _ = flat
+    return np.lib.stride_tricks.sliding_window_view(data, width)[offs[idx]]
+
+
+def _chunks(queries, subjects, cap: int, bytes_per_cell: int):
+    """Bucket the pairs by padded shape and stage each chunk in bulk.
+    Yields (idx, q, s, ms, ns) per chunk: the pairs' input positions and
+    host arrays (q (B, M) / s (B, N) uint8, ms / ns (B,) int32), at most
+    `cap` problems and about CHUNK_BYTES of device memory a chunk."""
+    if len(queries) != len(subjects):
+        raise ValueError("queries and subjects must have equal length")
+    if not len(queries):
+        return
+    fq, fs = _flat(queries), _flat(subjects)
+    Ms, Ns = _bucket(fq[2]), _bucket(fs[2])
+    keys, first, inverse = np.unique(Ms << 32 | Ns, return_index=True,
+                                     return_inverse=True)
+    order = np.argsort(inverse, kind="stable")
+    groups = np.split(order, np.cumsum(np.bincount(inverse))[:-1])
+    for g in np.argsort(first):            # buckets in order of appearance
+        M, N = int(keys[g] >> 32), int(keys[g] & 0xFFFFFFFF)
+        per_problem = (M + N) * 16 + M * N * bytes_per_cell // 8
+        step = max(1, min(cap, CHUNK_BYTES // per_problem))
+        for lo in range(0, len(groups[g]), step):
+            idx = groups[g][lo: lo + step]
+            yield (idx, _stage(fq, idx, M), _stage(fs, idx, N),
+                   fq[2][idx].astype(np.int32), fs[2][idx].astype(np.int32))
+
+
+def _to(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def align_scores_batch(queries, subjects, mode="global",
+                       scoring=LinearScoring(), batch_size: int = 512,
+                       device="cuda") -> np.ndarray:
+    """Score many pairs (record i of `queries` against record i of
+    `subjects`; str, bytes or uint8 arrays). Returns an np.int64 array of
+    scores in input order.
+
+    Pairs are bucketed by padded shape; each chunk of a bucket is one K7
+    sweep on `device` (a CPU device runs its plain version), score-only.
+    ``batch_size`` is accepted for the JAX package's signature: the chunk
+    size is set by device memory."""
+    from anyseq_tpu_torch.kernels import swarm
+
+    del batch_size
+    mode = Mode.parse(mode)
+    sc = check_scoring(scoring)
+    out = np.zeros(len(queries), dtype=np.int64)
+    for idx, *arrays in _chunks(queries, subjects, SCORE_CHUNK, 0):
+        q, s, ms, ns = _to(device, *arrays)
+        res = swarm.score_pairs_swarm(q, s, ms, ns, mode, sc, need_pos=False)
+        out[idx] = extract_batch(res, ms, ns, mode)[0].cpu().numpy()
+    return out
+
+
+def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
+                batch_size: int = 256, mesh=None,
+                device="cuda") -> list[Alignment]:
+    """Construct alignments for many pairs; a list of Alignment in input
+    order.
+
+    Linear gaps: per chunk of a bucket, K7 sweeps with 2-bit codes, the
+    score and end cell are extracted on the device, and K3 walks every
+    problem from its end cell (GLOBAL (m-1, n-1); LOCAL the best cell,
+    no walk where the score is <= 0; SEMIGLOBAL the extracted end); the
+    chunk's scores, cells and strings come back in one copy. Affine gaps
+    go pair by pair through ``api.align``, as in the JAX package.
+    ``batch_size`` is accepted for the JAX package's signature: the chunk
+    size is set by device memory."""
+    from anyseq_tpu_torch.engine import api
+    from anyseq_tpu_torch.kernels import swarm, walk
+
+    del batch_size
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device batches are not ported yet (ROADMAP queue 1, "
+            "item 12)")
+    mode = Mode.parse(mode)
+    sc = check_scoring(scoring)
+    if isinstance(sc, AffineScoring):
+        if len(queries) != len(subjects):
+            raise ValueError("queries and subjects must have equal length")
+        return [api.align(a, b, mode, sc, device=device)
+                for a, b in zip(queries, subjects)]
+    out: list = [None] * len(queries)
+    for idx, *arrays in _chunks(queries, subjects, ALIGN_CHUNK, 2):
+        q, s, ms, ns = _to(device, *arrays)
+        res = swarm.score_pairs_swarm(q, s, ms, ns, mode, sc,
+                                      emit_preds=True)
+        score, end = extract_batch(res, ms, ns, mode)
+        end = end.contiguous()
+        walked = (score > 0)[:, None] | (mode is not Mode.LOCAL)
+        # LOCAL with a best <= 0: no walk, the empty alignment with start
+        # = end + 1, as the single-pair path gives
+        oq, os_, starts = walk.walk(res["preds"], q, s,
+                                    torch.where(walked, end, -1), mode)
+        starts = torch.where(walked, starts, end + 1)
+        ints = torch.cat([score[:, None], starts], 1).to(torch.int32)
+        host = torch.cat([ints.contiguous().view(torch.uint8), oq, os_],
+                         1).cpu().numpy()
+        L = oq.shape[1]
+        ints = np.ascontiguousarray(host[:, :12]).view(np.int32).tolist()
+        lens = (arrays[2] + arrays[3]).tolist()
+        for r, (i, (sc_r, si, sj), n) in enumerate(zip(idx.tolist(), ints,
+                                                       lens)):
+            out[i] = Alignment(sc_r, host[r, 12: 12 + n].tobytes(),
+                               host[r, 12 + L: 12 + L + n].tobytes(),
+                               (si, sj))
+    return out

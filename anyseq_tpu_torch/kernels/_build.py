@@ -21,17 +21,17 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
-           "walk_affine.cu", "lastcols_affine.cu")
+           "walk_affine.cu", "lastcols_affine.cu", "swarm.cu")
 HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4, K5,
-# K5p, K5L, K6.
+# K5p, K5L, K6, K7 score-only and K7 with codes.
 launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
             "lastcols": 0, "wavefront_affine_score": 0,
             "wavefront_affine_preds": 0, "lastcols_affine": 0,
-            "walk_affine": 0}
+            "walk_affine": 0, "swarm_score": 0, "swarm_preds": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
@@ -48,6 +48,8 @@ SIGNATURES = {
     "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                                _P),
+    "anyseq_swarm": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
 }
 
 

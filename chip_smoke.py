@@ -1,30 +1,41 @@
 #!/usr/bin/env python3
-"""Drive anyseq_tpu_torch's main path once on one CUDA card.
+"""Drive anyseq_tpu_torch's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and ends the run with a non-zero exit code):
 
-1. Device and build: the card's name and power limit (nvidia-smi), and the
-   nvcc build of the kernels from ``anyseq_tpu_torch/kernels/csrc/``.
+1. Device and build: the card's name, power limit and top SM clock
+   (nvidia-smi), and the nvcc build of the kernels from
+   ``anyseq_tpu_torch/kernels/csrc/``.
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1.
-3. The main path through the public API with ``device="cuda"``, linear:
+3. Three main paths through the public API with ``device="cuda"``, each
+   driven with every launch count set to 0 just before it and read just
+   after (every kernel of the path must have launched). Linear:
    ``align_score`` 1k global, ``align_full_tb`` 10k local, ``align_score``
    100k local and ``align`` 100k semiglobal (which ``traceback="auto"``
    sends to Hirschberg); affine: ``align_score`` 100k local,
-   ``align_full_tb`` 10k global and ``align`` 100k semiglobal (Myers-Miller);
-   each with its wall time, GCUPS and kernel launches. The launch counts
-   are set to 0 before each of the two paths and read after it: every
-   kernel of the path must have launched. Both 100k alignments are
-   rescored from their strings and must equal their score and
-   ``align_score``. Small inputs (the golden corpus and a random pair,
-   both schemes) must give the same results on the card as the plain
-   versions on the CPU.
+   ``align_full_tb`` 10k global and ``align`` 100k semiglobal
+   (Myers-Miller); each with its wall time, GCUPS and kernel launches.
+   Both 100k alignments are rescored from their strings and must equal
+   their score and ``align_score``. Batch: ``align_scores_batch`` and
+   ``align_batch`` on 10,000 related ~256 bp pairs (local, linear and
+   affine scores, linear alignments), 1,000 pairs global and semiglobal,
+   and 200 pairs of ~4096 bp, each cold then warm; every alignment's
+   score must equal ``align_scores_batch``'s, a sample rescores from its
+   strings, the first pairs equal the plain path on the CPU, and the CLI
+   (``-b ... --score-only``) prints the same scores. Small inputs (the
+   golden corpus, a random pair and a small ragged batch, both schemes)
+   must give the same results on the card as the plain versions on the
+   CPU.
 4. Each kernel against its plain version again, on the very inputs the
-   main path gave it in phase 3 (kept as they passed), bit for bit.
-5. A JSON line of the kernels, the card's line, and the final JSON line.
+   main paths gave it in phase 3 (kept as they passed), bit for bit.
+5. A JSON line of the kernels (with each one's bound: the larger of the
+   bytes it must move over 3.35 TB/s and its int32 operations over 132
+   SMs x 64 int32 lanes x the top SM clock), the card's line, and the
+   final JSON line.
 
 Exits with code 2 and prints no result without a CUDA device, or when
 run outside a checkout of the repository.
@@ -45,13 +56,13 @@ import torch
 SEED = 2024
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
-    # name: (source, the TPU kernel it replaces, the main path that runs it)
+    # name: (source, the TPU kernel it replaces, the main paths that run it)
     "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
-             "anyseq_tpu/engine/device_tb.py:405", "linear"),
+             "anyseq_tpu/engine/device_tb.py:405", "linear batch"),
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
                  "anyseq_tpu/kernels/band.py:1677", "linear"),
     "wavefront_affine_score": (
@@ -64,7 +75,22 @@ KERNELS = {
                         "anyseq_tpu/kernels/band.py:1677", "affine"),
     "walk_affine": ("anyseq_tpu_torch/kernels/csrc/walk_affine.cu",
                     "anyseq_tpu/engine/device_tb.py:352", "affine"),
+    "swarm_score": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
+                    "anyseq_tpu/kernels/swarm.py:318", "batch"),
+    "swarm_preds": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
+                    "anyseq_tpu/kernels/swarm.py:318", "batch"),
 }
+# int32 operations a cell (or a walk step) of each kernel, counted from
+# its plain recurrence: linear H = max(diag + sub, max(up, left) + gap)
+# with sub a compare and a select (6); Gotoh F, E (two adds and a max
+# each), T and H (11); 2-bit codes add three compares, a shift and an or
+# (5), 4-bit codes nine; a walk step decodes its code (shift, and), takes
+# three compares and two decrements and forms its address (8).
+OPS = {"wavefront": 6, "wavefront_affine": 11, "lastcols": 6,
+       "lastcols_affine": 11, "swarm": 6, "swarm_affine": 11,
+       "codes": 5, "codes4": 9, "walk": 8, "walk_affine": 8}
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+INT32_LANES_PER_SM = 64
 # the affine scoring of the JAX package's bench suite (bench/suite.py)
 AFFINE = (2, -1, -3, -1)
 
@@ -172,7 +198,7 @@ def phase2(rng, errors):
     """Each kernel's wrapper on CUDA tensors against its plain version."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.engine import batch, linmem
-    from anyseq_tpu_torch.kernels import lastcols, walk, wavefront
+    from anyseq_tpu_torch.kernels import lastcols, swarm, walk, wavefront
 
     sc = LinearScoring()
     dev = torch.device("cuda")
@@ -287,6 +313,24 @@ def phase2(rng, errors):
                         lambda: walk.plain_affine(*args))
     record("walk_affine", err)
 
+    # K7: a ragged batch of 3000 problems up to 300 x 300 (subject rows
+    # not a multiple of 16 wide), 3 modes; linear with and without codes,
+    # affine with mixed start-gap flags
+    B, M, N = 3000, 300, 300
+    q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N)
+    sg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
+        for scoring, preds in ((sc, False), (sc, True), (asc, False)):
+            flags = sg if scoring is asc else None
+            args = (q3, s3, ms_, ns_, mode, scoring, flags, True, preds)
+            name = "swarm_preds" if preds else "swarm_score"
+            err, _, _ = compare(
+                f"phase2 K7 {name} {mode.value} {type(scoring).__name__} "
+                f"{B} problems up to {M}x{N}",
+                lambda: swarm.score_pairs_swarm(*args),
+                lambda: swarm.plain(*args))
+            record(name, err)
+
 
 # The launch function of each kernel wrapper module (K1/K2 share one, as
 # do K5/K5p); the plain version takes the same arguments after the library.
@@ -297,6 +341,7 @@ LAUNCHERS = {
     "walk_affine": ("walk", "launch_affine"),
     "lastcols": ("lastcols", "launch"),
     "lastcols_affine": ("lastcols", "launch_affine"),
+    "swarm": ("swarm", "launch"),
 }
 
 
@@ -345,10 +390,22 @@ def kept_launches(kept: list, call: list):
             setattr(wrapper_module(fn), attr, real[fn])
 
 
+def read_counts(path: str, counts: dict) -> None:
+    """Add each launch count of the path just driven to `counts` (a kernel
+    on several paths sums them); every kernel of the path must be > 0."""
+    from anyseq_tpu_torch.kernels import _build
+
+    for k, v in _build.launches.items():
+        if path in KERNELS[k][2].split():
+            counts[k] = counts.get(k, 0) + v
+            check(v > 0, f"kernel {k} launched on the {path} main path ({v})")
+
+
 def phase3(rng, kept):
-    """The main path through the public API, one path per gap scheme, each
-    driven with every launch count set to 0 just before it and read just
-    after; returns each kernel's count from the path that runs it."""
+    """The single-pair main path through the public API, one path per gap
+    scheme, each driven with every launch count set to 0 just before it
+    and read just after; returns each kernel's count from the paths that
+    run it."""
     import anyseq_tpu_torch as pt
     from anyseq_tpu_torch.kernels import _build
 
@@ -393,11 +450,7 @@ def phase3(rng, kept):
                       f"gcups={cells / wall / 1e9:.2f} "
                       f"launches={json.dumps(delta)}", flush=True)
                 results[current[0]] = out
-            for k, v in _build.launches.items():
-                if KERNELS[k][2] == path:
-                    counts[k] = v
-                    check(v > 0, f"kernel {k} launched on the {path} main "
-                          f"path ({v})")
+            read_counts(path, counts)
 
     q, s = pairs[100_000]
     for scoring in (sc, asc):
@@ -411,6 +464,125 @@ def phase3(rng, kept):
         print(f"phase3 100k semiglobal {scheme} rescored={got} "
               f"align_score={again} equal=True", flush=True)
     return counts
+
+
+def phase3_batch(rng, kept, counts):
+    """The batch path through the public API, driven with every launch
+    count set to 0 just before it and read just after: each call cold,
+    then warm, with its wall, GCUPS (the pairs' m * n over the wall) and
+    the cold call's launches. Then: every alignment's score equals
+    ``align_scores_batch``'s, 256 alignments of each call rescore from
+    their strings, the first pairs of each call equal the plain path on the
+    CPU, and the CLI's ``-b`` mode prints ``align_scores_batch``'s
+    scores."""
+    import dataclasses
+    import io
+    import tempfile
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch import cli
+    from anyseq_tpu_torch.kernels import _build
+
+    sc = pt.LinearScoring()
+    asc = pt.AffineScoring(*AFFINE)
+    sets = {256: [related_pair(rng, 256) for _ in range(10_000)],
+            4096: [related_pair(rng, 4096) for _ in range(200)]}
+    calls = (
+        ("align_scores_batch", 256, 10_000, "local", sc),
+        ("align_scores_batch", 256, 10_000, "local", asc),
+        ("align_batch", 256, 10_000, "local", sc),
+        ("align_scores_batch", 256, 1000, "global", sc),
+        ("align_batch", 256, 1000, "global", sc),
+        ("align_scores_batch", 256, 1000, "semiglobal", sc),
+        ("align_batch", 256, 1000, "semiglobal", sc),
+        ("align_scores_batch", 4096, 200, "local", sc),
+    )
+
+    def pairs(n, count):
+        qs, ss = zip(*sets[n][:count])
+        return list(qs), list(ss)
+
+    torch.cuda.synchronize()
+    for k in _build.launches:
+        _build.launches[k] = 0
+    current = [None]
+    results = {}
+    with kept_launches(kept, current):
+        for name, n, count, mode, scoring in calls:
+            qs, ss = pairs(n, count)
+            scheme = type(scoring).__name__
+            current[0] = (name, n, count, mode, scheme)
+            cells = sum(len(a) * len(b) for a, b in zip(qs, ss))
+            walls = []
+            for _ in ("cold", "warm"):
+                before = dict(_build.launches)
+                t0 = time.perf_counter()
+                out = getattr(pt, name)(qs, ss, mode, scoring, device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if len(walls) == 1:
+                    delta = {k: v - before[k]
+                             for k, v in _build.launches.items()
+                             if v > before[k]}
+            print(f"phase3 {name} {mode} {scheme} {count} pairs ~{n} bp "
+                  f"cells={cells} wall_s cold={walls[0]:.4f} "
+                  f"warm={walls[1]:.4f} gcups cold="
+                  f"{cells / walls[0] / 1e9:.2f} "
+                  f"warm={cells / walls[1] / 1e9:.2f} "
+                  f"launches={json.dumps(delta)}", flush=True)
+            results[current[0]] = out
+
+        # the CLI's batch mode, in-process, on the first 1000 local pairs
+        qs, ss = pairs(256, 1000)
+        current[0] = ("cli -b --score-only", 256, 1000, "local",
+                      "LinearScoring")
+        with tempfile.TemporaryDirectory() as tmp:
+            files = []
+            for name, seqs in (("q.fa", qs), ("s.fa", ss)):
+                files.append(os.path.join(tmp, name))
+                with open(files[-1], "wb") as f:
+                    f.write(b"".join(b">%d\n%s\n" % (i, x)
+                                     for i, x in enumerate(seqs)))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-b", *files, "--mode", "local",
+                               "--score-only"])
+        lines = [x for x in buf.getvalue().splitlines()
+                 if x.startswith("pair ")]
+        want = results[("align_scores_batch", 256, 10_000, "local",
+                        "LinearScoring")][:1000]
+        check(rc == 0 and lines == [f"pair {i}: score {v}"
+                                    for i, v in enumerate(want.tolist())],
+              "CLI -b --score-only prints align_scores_batch's scores")
+        print(f"phase3 cli -b --score-only local 1000 pairs: {len(lines)} "
+              f"scores equal", flush=True)
+    read_counts("batch", counts)
+
+    for count, mode in ((10_000, "local"), (1000, "global"),
+                        (1000, "semiglobal")):
+        alns = results[("align_batch", 256, count, mode, "LinearScoring")]
+        scores = results[("align_scores_batch", 256, count, mode,
+                          "LinearScoring")]
+        check([a.score for a in alns] == scores.tolist(),
+              f"align_batch {mode} scores == align_scores_batch")
+        sample = rng.choice(count, 256, replace=False)
+        check(all(rescore(alns[i], sc) == alns[i].score for i in sample),
+              f"align_batch {mode}: 256 alignments rescore to their score")
+        print(f"phase3 align_batch {mode} {count} pairs: scores == "
+              f"align_scores_batch, 256 rescored equal", flush=True)
+    for (name, n, count, mode, scheme), out in results.items():
+        k = 16 if n == 4096 else 256
+        qs, ss = pairs(n, k)
+        scoring = sc if scheme == "LinearScoring" else asc
+        want = getattr(pt, name)(qs, ss, mode, scoring, device="cpu")
+        if name == "align_batch":
+            same = ([dataclasses.astuple(a) for a in out[:k]]
+                    == [dataclasses.astuple(a) for a in want])
+        else:
+            same = out[:k].tolist() == want.tolist()
+        check(same, f"{name} {mode} {scheme}: first {k} pairs, card == CPU")
+    print("phase3 batch calls: first pairs of each equal to the CPU plain "
+          "path", flush=True)
 
 
 def phase3_small(rng):
@@ -458,18 +630,81 @@ def phase3_small(rng):
                 check(got == (want["q"], want["s"]),
                       f"golden {cls['fasta']} {rec['k']} {mode} strings")
                 checked += 1
+    # a small ragged batch across the 256 / 512 bucket edge
+    qs, ss = zip(*[related_pair(rng, int(n))
+                   for n in rng.integers(5, 300, 24)])
+    for sc in (pt.LinearScoring(), pt.AffineScoring(*AFFINE)):
+        for mode in ("global", "semiglobal", "local"):
+            a = pt.align_scores_batch(qs, ss, mode, sc, device="cuda")
+            b = pt.align_scores_batch(qs, ss, mode, sc, device="cpu")
+            check(a.tolist() == b.tolist(), f"small batch {mode} {sc} scores")
+            a = pt.align_batch(qs, ss, mode, sc, device="cuda")
+            b = pt.align_batch(qs, ss, mode, sc, device="cpu")
+            check([dataclasses.astuple(x) for x in a]
+                  == [dataclasses.astuple(x) for x in b],
+                  f"small batch {mode} {sc} alignments")
     print(f"phase3 small inputs: card == CPU plain, {checked} golden checks "
           f"equal", flush=True)
 
 
-def phase4(kept, timings, errors):
-    """Each kernel against its plain version on inputs the main path gave
+def bound(fn: str, args, sm_clock_mhz: float):
+    """(bound_ms, bound_by) of one launch of `fn` on `args`: the larger of
+    the bytes it must move (each input read once, each output written
+    once) over the card's memory rate and its int32 operations (OPS a cell
+    or a walk step) over 132 SMs x 64 int32 lanes x the top SM clock. A
+    walk counts the steps this run's data takes (the positions it
+    writes)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_ops = sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    if fn.startswith("wavefront"):
+        q, s, _, sc, preds = args[1:6]
+        m, n = q.numel(), s.numel()
+        affine = fn == "wavefront_affine"
+        nbytes = m + n + 4 * (n + m + 3)
+        if affine and args[7]:
+            nbytes += 4 * m                          # the E last column
+        if preds:
+            nbytes += 4 * m * -(-n // (8 if affine else 16))
+        ops = m * n * (OPS[fn] + (OPS["codes4" if affine else "codes"]
+                                  if preds else 0))
+    elif fn.startswith("walk"):
+        out_q = launcher(fn)(*args)[0]
+        steps = int((out_q != ord(" ")).sum())
+        nbytes = steps * (4 + 2 + 2) + 16 * out_q.shape[0]
+        ops = steps * OPS[fn]
+    else:
+        q, s, ms, ns = args[1:5]
+        ms, ns = ms.to(torch.int64), ns.to(torch.int64)
+        cells = int((ms * ns).sum())
+        B, sum_m, sum_n = q.shape[0], int(ms.sum()), int(ns.sum())
+        nbytes = sum_m + sum_n + 8 * B
+        if fn.startswith("lastcols"):
+            affine = fn == "lastcols_affine"
+            nbytes += 4 * sum_m * (2 if affine else 1) + (B if affine else 0)
+            ops = cells * OPS[fn]
+        else:
+            sc, sgaps, _, preds = args[6:10]
+            affine = hasattr(sc, "gap_open")
+            nbytes += B + 4 * (sum_m + sum_n) + 12 * B
+            if preds:
+                nbytes += 4 * int((ms * ((ns + 15) // 16)).sum())
+            ops = cells * (OPS["swarm_affine" if affine else "swarm"]
+                           + (OPS["codes"] if preds else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase4(kept, timings, errors, sm_clock_mhz):
+    """Each kernel against its plain version on inputs the main paths gave
     it in phase 3. The times reported in the JSON line are these: K1 at
     the 100k local score, K2 and K3 at the linear 10k full traceback, K4
     at the first batched level of the 100k construction; K5 at the
     smallest half sweep of the affine 100k construction, K5p and K6 at the
     affine 10k full traceback, K5L at the first batched level of the
-    affine 100k construction."""
+    affine 100k construction; K7 at the largest chunk of the 10,000-pair
+    local linear ``align_scores_batch`` (score-only) and
+    ``align_batch`` (with codes)."""
 
     def kept_of(call, fn, pred=lambda args: True):
         return [args for c, f, args in kept if c == call and f == fn
@@ -494,7 +729,7 @@ def phase4(kept, timings, errors):
                                     lambda: plain_of(fn, args), reps=3)
         errors[name] = max(errors.get(name, 0), err)
         if report:
-            timings[name] = (ms, plain_ms)
+            timings[name] = (ms, plain_ms, *bound(fn, args, sm_clock_mhz))
 
     def preds(args):
         return args[5]
@@ -545,6 +780,29 @@ def phase4(kept, timings, errors):
           f"kernel_ms={ms:.3f} gcups={cells(args) / ms / 1e6:.2f}",
           flush=True)
 
+    def largest(call, fn):
+        return max(kept_of(call, fn), key=lambda args: args[1].shape[0])
+
+    scores_10k = ("align_scores_batch", 256, 10_000, "local",
+                  "LinearScoring")
+    aln_10k = ("align_batch", 256, 10_000, "local", "LinearScoring")
+    run("swarm_score", "K7", scores_10k, "swarm",
+        largest(scores_10k, "swarm"), report=True)
+    run("swarm_preds", "K7", aln_10k, "swarm", largest(aln_10k, "swarm"),
+        report=True)
+    run("walk", "K3", aln_10k, "walk", largest(aln_10k, "walk"))
+    for call in (("align_scores_batch", 256, 10_000, "local",
+                  "AffineScoring"),
+                 ("align_batch", 256, 1000, "semiglobal", "LinearScoring"),
+                 ("align_scores_batch", 4096, 200, "local",
+                  "LinearScoring")):
+        args = largest(call, "swarm")
+        run("swarm_preds" if args[9] else "swarm_score", "K7", call,
+            "swarm", args)
+        ms_, by = bound("swarm", args, sm_clock_mhz)
+        print(f"phase4 K7 bound {' '.join(map(str, call))} "
+              f"bound_ms={ms_:.4f} bound_by={by}", flush=True)
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "anyseq_tpu_torch", "kernels",
@@ -560,7 +818,13 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[torch.cuda.current_device()]
-    print(f"phase1 card: {smi}", flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()
+    sm_clock_mhz = float(clock[torch.cuda.current_device()])
+    print(f"phase1 card: {smi}, max SM clock {sm_clock_mhz:.0f} MHz",
+          flush=True)
 
     from anyseq_tpu_torch.kernels import _build
 
@@ -572,14 +836,19 @@ def main() -> int:
     timings, errors, kept = {}, {}, []
     phase2(rng, errors)
     counts = phase3(rng, kept)
+    phase3_batch(rng, kept, counts)
     phase3_small(rng)
-    phase4(kept, timings, errors)
+    phase4(kept, timings, errors, sm_clock_mhz)
 
+    # no PyTorch call computes a DP alignment or a traceback walk, so no
+    # kernel has a library yardstick
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errors[name],
          "ms": round(timings[name][0], 4),
-         "plain_ms": round(timings[name][1], 2)}
+         "plain_ms": round(timings[name][1], 2),
+         "bound_ms": round(timings[name][2], 6),
+         "bound_by": timings[name][3], "library_ms": None}
         for name, (src, rep, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@ import torch
 
 from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
 from anyseq_tpu_torch.engine import batch
-from anyseq_tpu_torch.kernels import _build, lastcols, walk, wavefront
+from anyseq_tpu_torch.kernels import _build, lastcols, swarm, walk, wavefront
 
 SC = LinearScoring(2, -1, -1)
 # the bench suite's affine scoring, and a free extension (ge = 0)
@@ -194,6 +194,35 @@ def test_walk_affine_kernel(emu_lib, mode, sc):
     want = walk.plain_affine(words, q, s, ends, mode, sg, eg)
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sc", [SC, LinearScoring(3, -2, -2)] + ASC, ids=str)
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("B,M,N", [(1, 1, 1), (127, 30, 50), (129, 40, 17),
+                                   (300, 20, 33)])
+def test_swarm_kernel(emu_lib, B, M, N, mode, sc):
+    """K7 with one CTA, a CTA edge on either side of 128 problems and three
+    CTAs; ragged lengths with m = n = 1 problems; bytes past each length
+    are real bases. Linear with and without codes, and LOCAL without
+    positions; affine with mixed start-gap flags and ge = 0."""
+    rng = np.random.default_rng(B * M * N + 5)
+    q = torch.from_numpy(rng.integers(65, 69, (B, M)).astype(np.uint8))
+    s = torch.from_numpy(rng.integers(65, 69, (B, N)).astype(np.uint8))
+    ms = torch.from_numpy(rng.integers(1, M + 1, B))
+    ns = torch.from_numpy(rng.integers(1, N + 1, B))
+    ms[-1] = ns[-1] = 1
+    ms[0], ns[0] = M, N
+    affine = isinstance(sc, AffineScoring)
+    sg = _flags(rng, B) if affine else None
+    cases = [(True, False), (False, False)] + ([] if affine
+                                               else [(True, True)])
+    for need_pos, preds in cases:
+        got = swarm.launch(emu_lib, q, s, ms, ns, mode, sc, sg, need_pos,
+                           preds)
+        want = swarm.plain(q, s, ms, ns, mode, sc, sg, need_pos, preds)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (k, need_pos, preds)
 
 
 def test_reduce_best_order():

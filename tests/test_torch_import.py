@@ -14,12 +14,13 @@ import anyseq_tpu_torch as pt
 from anyseq_tpu.io.alignment import print_alignment as jax_print_alignment
 from anyseq_tpu_torch.engine import hirschberg
 from anyseq_tpu_torch.io.alignment import print_alignment
-from anyseq_tpu_torch.kernels import _build, lastcols, walk, wavefront
+from anyseq_tpu_torch.kernels import _build, lastcols, swarm, walk, wavefront
 
 from conftest import mutate, random_dna
 
 MODULES = [
     "anyseq_tpu_torch",
+    "anyseq_tpu_torch.cli",
     "anyseq_tpu_torch.engine.affine",
     "anyseq_tpu_torch.engine.api",
     "anyseq_tpu_torch.engine.batch",
@@ -27,10 +28,13 @@ MODULES = [
     "anyseq_tpu_torch.engine.hirschberg",
     "anyseq_tpu_torch.engine.linmem",
     "anyseq_tpu_torch.io.alignment",
+    "anyseq_tpu_torch.io.fasta",
     "anyseq_tpu_torch.kernels._build",
     "anyseq_tpu_torch.kernels.lastcols",
+    "anyseq_tpu_torch.kernels.swarm",
     "anyseq_tpu_torch.kernels.walk",
     "anyseq_tpu_torch.kernels.wavefront",
+    "anyseq_tpu_torch.parity",
 ]
 
 
@@ -125,6 +129,20 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         lastcols.last_cols_affine(q[None], q[None], ms, ms,
                                   pt.AffineScoring(), ms.bool())
+    for sc in (pt.LinearScoring(), pt.AffineScoring()):
+        with pytest.raises(ValueError, match="device"):
+            swarm.score_pairs_swarm(q[None], q[None], ms, ms, pt.Mode.LOCAL,
+                                    sc)
+
+
+def test_every_kernel_has_a_launch_count():
+    """One counter per kernel entry of the library, so that a path that
+    bypasses a kernel shows as a count of 0."""
+    assert set(_build.launches) == {
+        "wavefront_score", "wavefront_preds", "walk", "lastcols",
+        "wavefront_affine_score", "wavefront_affine_preds",
+        "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds"}
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) == 7
 
 
 def test_wrappers_check_types():
