@@ -68,10 +68,12 @@ def _col_bound(mode: Mode, sc: AffineScoring, i: int) -> int:
 
 
 def affine_row(H_prev, F_prev, dsub_no_diag, diag, col_i, jge, local: bool,
-               sc: AffineScoring):
+               sc: AffineScoring, cole_i=None):
     """One Gotoh row over the last axis. ``diag`` is H[i-1][j-1] and
     ``dsub_no_diag`` the substitution scores; ``col_i`` is H[i][-1], a
-    (..., 1) tensor. Returns (H, E, F, dsub)."""
+    (..., 1) tensor, and ``cole_i`` E[i][-1] likewise, or None for the
+    closed-form boundary (E[i][-1] = NEG + go - ge, which yields the same
+    row). Returns (H, E, F, dsub)."""
     go, ge = sc.gap_open, sc.gap_extend
     F = torch.maximum(H_prev + (go + ge), F_prev + ge)
     dsub = diag + dsub_no_diag
@@ -80,7 +82,11 @@ def affine_row(H_prev, F_prev, dsub_no_diag, diag, col_i, jge, local: bool,
         T = T.clamp_min(0)
     cm = torch.cummax(T - jge, -1).values
     shifted = torch.cat([torch.full_like(cm[..., :1], NEG), cm[..., :-1]], -1)
-    E = go + jge + torch.maximum(shifted, col_i + ge)
+    run = go + torch.maximum(shifted, col_i + ge)
+    if cole_i is not None:
+        # a run entering from the left: E[i][j] >= E[i][-1] + (j + 1) * ge
+        run = torch.maximum(run, cole_i + ge)
+    E = jge + run
     H = torch.maximum(T, E)
     return H, E, F, dsub
 
@@ -98,40 +104,66 @@ def pred_codes4(H, E, F, dsub, H_prev, h_left, sc: AffineScoring):
     return ph + 4 * pe + 8 * pf
 
 
-def _sweep(q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
-           emit_col_e: bool, emit_preds: bool):
-    m, n = int(q.shape[0]), int(s.shape[0])
-    dev = s.device
+def top_row_affine(mode: Mode, sc: AffineScoring, n: int, start_gap: bool,
+                   device):
+    """The closed-form top boundary: H[-1][0..n) and F[-1][0..n)."""
     go, ge = sc.gap_open, sc.gap_extend
+    jj = torch.arange(n, dtype=torch.int32, device=device)
+    if mode is Mode.GLOBAL:
+        H = (0 if start_gap else go) + (jj + 1) * ge
+    else:
+        H = torch.zeros_like(jj)
+    return H, torch.full_like(jj, NEG)
+
+
+def left_col_affine(mode: Mode, sc: AffineScoring, i0: int, h: int,
+                    start_gap: bool, device):
+    """The closed-form left boundary of rows [i0, i0 + h): the corner
+    H[i0-1][-1] (an int), the column H[i0..i0+h)[-1] and the column
+    E[i0..i0+h)[-1] (no run enters from the left: NEG + go - ge, so that
+    E[i][0] = go + max(NEG, H[i][-1] + ge) as in :func:`affine_row`)."""
+    go, ge = sc.gap_open, sc.gap_extend
+    rows = torch.arange(i0, i0 + h, dtype=torch.int32, device=device)
+    cole = torch.full_like(rows, NEG + go - ge)
+    if mode is not Mode.GLOBAL:
+        return 0, torch.zeros_like(rows), cole
+    if start_gap:
+        return NEG, torch.full_like(rows, NEG), cole
+    return _col_bound(mode, sc, i0 - 1), go + (rows + 1) * ge, cole
+
+
+def _band(q, s, row, rowf, corner, col, cole, mode: Mode, sc: AffineScoring,
+          emit_preds: bool):
+    """Relax the h = len(q) rows below the top row `row` = H[i0-1][0..n)
+    and `rowf` = F[i0-1][0..n), with the corner H[i0-1][-1] and the left
+    columns `col` = H[i0..i0+h)[-1] and `cole` = E[i0..i0+h)[-1]. Row
+    indices of the outputs count from the top of the band."""
+    h, n = int(q.shape[0]), int(s.shape[0])
+    dev = s.device
     local = mode is Mode.LOCAL
-    jj = torch.arange(n, dtype=torch.int32, device=dev)
-    jge = jj * ge
+    jge = torch.arange(n, dtype=torch.int32, device=dev) * sc.gap_extend
     s32 = s.to(torch.int32)
     q32 = q.to(torch.int32)
-    if mode is Mode.GLOBAL:
-        H = go + (jj + 1) * ge
-        if start_gap:
-            H = H - go
-    else:
-        H = torch.zeros(n, dtype=torch.int32, device=dev)
-    F = torch.full((n,), NEG, dtype=torch.int32, device=dev)
-    last_col = torch.empty(m, dtype=torch.int32, device=dev)
-    last_col_e = torch.empty(m, dtype=torch.int32, device=dev)
+    col = col.to(torch.int32)
+    cole = cole.to(torch.int32)
+    match, mismatch = (torch.tensor(x, dtype=torch.int32, device=dev)
+                       for x in (sc.match, sc.mismatch))
+    corner = torch.as_tensor(corner, dtype=torch.int32, device=dev).reshape(1)
+    diag0 = torch.cat([corner, col[:-1]])      # H[i-1][-1]
+    H = row.to(torch.int32)
+    F = rowf.to(torch.int32)
+    last_col = torch.empty(h, dtype=torch.int32, device=dev)
+    last_col_e = torch.empty(h, dtype=torch.int32, device=dev)
     best = torch.tensor([SCORE_MIN, -1, -1], dtype=torch.int32, device=dev)
-    preds = (torch.empty((m, -(-n // CODES4_PER_WORD)), dtype=torch.int32,
+    preds = (torch.empty((h, -(-n // CODES4_PER_WORD)), dtype=torch.int32,
                          device=dev) if emit_preds else None)
-    for i in range(m):
-        if start_gap:
-            col_i = col_im1 = NEG
-        else:
-            col_i = _col_bound(mode, sc, i)
-            col_im1 = _col_bound(mode, sc, i - 1)
-        col_i = H.new_full((1,), col_i)
-        diag = torch.cat([H.new_full((1,), col_im1), H[:-1]])
-        sub = torch.where(s32 == q32[i], sc.match, sc.mismatch)
+    for i in range(h):
+        col_i = col[i:i + 1]
+        diag = torch.cat([diag0[i:i + 1], H[:-1]])
+        sub = torch.where(s32 == q32[i], match, mismatch)
         H_prev = H
         H, E, F, dsub = affine_row(H_prev, F, sub, diag, col_i, jge, local,
-                                   sc)
+                                   sc, cole[i:i + 1])
         if emit_preds:
             h_left = torch.cat([col_i, H[:-1]])
             preds[i] = pack_codes4(pred_codes4(H, E, F, dsub, H_prev, h_left,
@@ -145,12 +177,43 @@ def _sweep(q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
             torch.stack([rmax, rmax.new_full((), i), rarg.to(torch.int32)]),
             best,
         )
-    outs = {"last_row": H, "last_col": last_col, "best": best}
-    if emit_col_e:
-        outs["last_col_e"] = last_col_e
+    outs = {"last_row": H, "last_row_f": F, "last_col": last_col,
+            "last_col_e": last_col_e, "best": best}
     if emit_preds:
         outs["preds"] = preds
     return outs
+
+
+def _sweep(q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
+           emit_col_e: bool, emit_preds: bool):
+    """The whole DP: the band of all m rows under the closed-form
+    boundary."""
+    dev = s.device
+    outs = _band(q, s, *top_row_affine(mode, sc, int(s.shape[0]), start_gap,
+                                       dev),
+                 *left_col_affine(mode, sc, 0, int(q.shape[0]), start_gap,
+                                  dev),
+                 mode, sc, emit_preds)
+    del outs["last_row_f"]
+    if not emit_col_e:
+        del outs["last_col_e"]
+    return outs
+
+
+def score_band_affine(q_band, s, row_in, rowf_in, corner, col_in, cole_in,
+                      mode: Mode, sc: AffineScoring):
+    """One band of rows [i0, i0 + h) of the Gotoh DP from an explicit
+    boundary: the plain version of the affine band kernel (K8 affine).
+
+    As ``linmem.score_band``, plus rowf_in: (n,) F[i0-1][0..n) and
+    cole_in: (h,) E[i0..i0+h)[-1] (E[i][0] = max(E[i][-1] + ge, H[i][-1]
+    + go + ge)). A Myers-Miller ``start_gap`` band is a matter of these
+    inputs (:func:`top_row_affine`, :func:`left_col_affine`). Returns
+    last_row, last_row_f (F[i0+h-1][0..n)), last_col, last_col_e
+    (E[i0..i0+h)[n-1]) and the band-local best.
+    """
+    return _band(q_band, s, row_in, rowf_in, corner, col_in, cole_in,
+                 Mode.parse(mode), sc, emit_preds=False)
 
 
 def score_rows_affine(q, s, mode: Mode, sc: AffineScoring,

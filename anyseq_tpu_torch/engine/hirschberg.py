@@ -2,9 +2,8 @@
 Myers-Miller for affine (Gotoh) gaps.
 
 The port of the JAX package's ``engine/hirschberg.py`` (``_hb_global``,
-``_hb_global_affine`` and ``align_hirschberg`` without the mesh and
-checkpoint branches), with the same splits and therefore the same
-strings:
+``_hb_global_affine``, ``_HbCheckpoint`` and ``align_hirschberg`` without
+the mesh branches), with the same splits and therefore the same strings:
 
 * every divide level runs all its parts at once: a part's left half
   forward and its right half reversed give the two boundary columns, and
@@ -20,22 +19,34 @@ strings:
   (K1, transposed so that the half's last column is the sweep's last row,
   since linear GLOBAL DP is transpose-symmetric; K5 in the half's own
   orientation, since transposing Gotoh swaps E and F and ``start_gap``
-  names a horizontal run); deeper levels run every half in one batched
-  sweep (K4 / K5L). Only the (P,) split rows, crossing flags and scores
-  come back to the host;
+  names a horizontal run), and so does every level whose tallest half
+  has more than ``band.M_MAX`` rows (the JAX package's genome-scale
+  condition): a sweep taller than that runs as a chain of bands (K8 /
+  K8 affine), whose memory does not grow with the height; other levels
+  run every half in one batched sweep (K4 / K5L). Only the (P,) split
+  rows, crossing flags and scores come back to the host;
 * parts of width <= ``MIN_WIDTH`` (or of height <= 1) are terminal
   stripes: a batched pred sweep in torch, then the batched walk (K3 / K6),
   whose walked positions are copied into the output buffers on the
   device;
 * semiglobal and local alignments first find the end cell (forward sweep)
   and the start cell (reverse sweep on the reversed end prefix), then run
-  the global construction on that rectangle.
+  the global construction on that rectangle;
+* with ``checkpoint_path``, each completed level and terminal chunk
+  rewrites one npz (the parts still to divide, the terminal stripes, the
+  output buffers copied to the host, the root score), and the endpoint
+  stages of semiglobal and local alignments another; a killed run called
+  again with the same arguments resumes and gives the same bytes.
 
 ``MIN_WIDTH`` is 256 on every device: the stripe boundaries decide tie
 cells in the strings, and the JAX package uses 256 off the TPU.
 """
 from __future__ import annotations
 
+import hashlib
+import os
+
+import numpy as np
 import torch
 
 from anyseq_tpu_torch.core.types import (
@@ -49,10 +60,53 @@ from anyseq_tpu_torch.core.types import (
     check_scoring,
 )
 from anyseq_tpu_torch.engine import batch, linmem
-from anyseq_tpu_torch.kernels import lastcols, wavefront
+from anyseq_tpu_torch.engine.resumable import atomic_savez
+from anyseq_tpu_torch.kernels import band, lastcols, wavefront
 
 MIN_WIDTH = 256
 TERMINAL_BATCH = 512
+_RS_NONE = -(2**62)    # no root score yet, in a checkpoint
+_STAGE_KEYS = ("stage", "score", "ei", "ej", "rscore", "ri", "rj")
+
+
+class _HbCheckpoint:
+    """Durable state of a construction: one npz, rewritten atomically
+    after each completed unit of work and tagged with the problem's key;
+    a checkpoint of another problem is refused."""
+
+    def __init__(self, path, key: str):
+        self.path = path
+        self.key = key
+
+    def load(self):
+        if not self.path or not os.path.exists(self.path):
+            return None
+        ck = np.load(self.path, allow_pickle=False)
+        if str(ck["key"]) != self.key:
+            raise ValueError("checkpoint does not match this problem")
+        return ck
+
+    def save(self, **arrays):
+        if self.path:
+            atomic_savez(self.path, key=self.key, **arrays)
+
+
+def _ckpt_key(q, s, mode: Mode, sc) -> str:
+    """The problem a checkpoint belongs to: both sequences, the mode, the
+    scoring and the stripe width."""
+    h = hashlib.sha256()
+    h.update(q.cpu().numpy().tobytes())
+    h.update(s.cpu().numpy().tobytes())
+    h.update(repr((mode.value, sc, MIN_WIDTH)).encode())
+    return h.hexdigest()
+
+
+def _parts_array(parts) -> np.ndarray:
+    return np.asarray(parts, np.int64).reshape(-1, 6)
+
+
+def _parts_list(arr) -> list[tuple]:
+    return [(*map(int, r[:4]), bool(r[4]), bool(r[5])) for r in arr]
 
 
 def _bucket(x: int, mult: int = 256) -> int:
@@ -128,7 +182,9 @@ def _level_batched(q, s, parts, sc):
 
 def _split(q, s, parts, sc):
     """Split rows of a level: (k, crosses_in_gap, score) per part."""
-    level = _level_per_half if len(parts) <= 2 else _level_batched
+    per_half = (len(parts) <= 2
+                or max(p[1] - p[0] for p in parts) > band.M_MAX)
+    level = _level_per_half if per_half else _level_batched
     cols = level(q, s, parts, sc)
     dev = cols[0].device
 
@@ -151,57 +207,61 @@ def _write_all_gap_subject(s, base: int, out_q, out_s) -> None:
     out_s[base: base + s.shape[0]] = s
 
 
-def _terminals(q, s, terminals, off, out_q, out_s, sc, root):
-    """Walk the terminal stripes into out_q / out_s (whose last slot takes
-    the writes of unwalked positions). Returns the score of the stripe
-    `root` (the whole problem), or None if it is not among them."""
-    dev = q.device
-    dump = out_q.shape[0] - 1
-    root_score = None
+def _terminal_chunks(terminals) -> list[list[tuple]]:
+    """The terminal stripes in walk order: grouped by padded shape, in
+    chunks of at most TERMINAL_BATCH (a chunk is a checkpoint unit)."""
     groups: dict[tuple[int, int], list] = {}
     for part in terminals:
         h, w = part[1] - part[0], part[3] - part[2]
         groups.setdefault((_bucket(h), _bucket(w, 128)), []).append(part)
-    for (Hb, Wb), parts in groups.items():
-        for lo in range(0, len(parts), TERMINAL_BATCH):
-            chunk = parts[lo: lo + TERMINAL_BATCH]
-
-            def t(i, dtype=torch.int64):
-                return torch.tensor([p[i] for p in chunk], dtype=dtype,
-                                    device=dev)
-
-            qlo, slo = t(0), t(2)
-            hs, ws = t(1) - qlo, t(3) - slo
-            fwd = torch.zeros(len(chunk), dtype=torch.bool, device=dev)
-            q3 = _gather(q, qlo, hs, fwd, Hb)
-            s3 = _gather(s, slo, ws, fwd, Wb)
-            if isinstance(sc, AffineScoring):
-                oq, os_, scores = batch.preds_walk_batch_affine(
-                    q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
-            else:
-                oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
-            if root in chunk:
-                root_score = int(scores[chunk.index(root)])
-            # copy only the walked positions: a stripe's unwalked slots
-            # belong to no one, but the buffer is shared
-            pos = (off + qlo + slo)[:, None] + torch.arange(Hb + Wb,
-                                                            device=dev)
-            walked = (oq != EMPTY_SYM) | (os_ != EMPTY_SYM)
-            pos = torch.where(walked, pos, dump).reshape(-1)
-            out_q.index_put_((pos,), oq.reshape(-1))
-            out_s.index_put_((pos,), os_.reshape(-1))
-    return root_score
+    return [parts[lo: lo + TERMINAL_BATCH] for parts in groups.values()
+            for lo in range(0, len(parts), TERMINAL_BATCH)]
 
 
-def _hb_global(q, s, off: int, out_q, out_s, sc) -> int:
+def _walk_chunk(q, s, chunk, off, out_q, out_s, sc) -> torch.Tensor:
+    """Walk one chunk of terminal stripes (of one padded shape) into
+    out_q / out_s, whose last slot takes the writes of unwalked
+    positions; returns their scores."""
+    dev = q.device
+    dump = out_q.shape[0] - 1
+
+    def t(i, dtype=torch.int64):
+        return torch.tensor([p[i] for p in chunk], dtype=dtype, device=dev)
+
+    Hb = _bucket(max(p[1] - p[0] for p in chunk))
+    Wb = _bucket(max(p[3] - p[2] for p in chunk), 128)
+    qlo, slo = t(0), t(2)
+    hs, ws = t(1) - qlo, t(3) - slo
+    fwd = torch.zeros(len(chunk), dtype=torch.bool, device=dev)
+    q3 = _gather(q, qlo, hs, fwd, Hb)
+    s3 = _gather(s, slo, ws, fwd, Wb)
+    if isinstance(sc, AffineScoring):
+        oq, os_, scores = batch.preds_walk_batch_affine(
+            q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
+    else:
+        oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
+    # copy only the walked positions: a stripe's unwalked slots belong to
+    # no one, but the buffer is shared
+    pos = (off + qlo + slo)[:, None] + torch.arange(Hb + Wb, device=dev)
+    walked = (oq != EMPTY_SYM) | (os_ != EMPTY_SYM)
+    pos = torch.where(walked, pos, dump).reshape(-1)
+    out_q.index_put_((pos,), oq.reshape(-1))
+    out_s.index_put_((pos,), os_.reshape(-1))
+    return scores
+
+
+def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None) -> int:
     """Level-synchronous global construction of q against s (both
     non-empty), whose cell (i, j) lands at position off + i + j + 1 of
-    out_q / out_s. Returns the global score."""
+    out_q / out_s. Returns the global score. With `ckpt`
+    (:class:`_HbCheckpoint`) it starts from the saved state, if any, and
+    saves after every level and every terminal chunk."""
     m, n = q.shape[0], s.shape[0]
     root = (0, m, 0, n, False, False)
     root_score = None
     active: list[tuple] = []
     terminals: list[tuple] = []
+    term_done = 0
 
     def classify(part):
         qlo, qhi, slo, shi = part[:4]
@@ -214,6 +274,25 @@ def _hb_global(q, s, off: int, out_q, out_s, sc) -> int:
             active.append(part)
 
     classify(root)
+    ck = ckpt.load() if ckpt is not None else None
+    if ck is not None:
+        active = _parts_list(ck["active"])
+        terminals = _parts_list(ck["terminals"])
+        out_q.copy_(torch.from_numpy(ck["out_q"]))
+        out_s.copy_(torch.from_numpy(ck["out_s"]))
+        rs = int(ck["root_score"])
+        root_score = None if rs == _RS_NONE else rs
+        term_done = int(ck["term_done"])
+
+    def save():
+        if ckpt is not None:
+            ckpt.save(active=_parts_array(active),
+                      terminals=_parts_array(terminals),
+                      out_q=out_q.cpu().numpy(), out_s=out_s.cpu().numpy(),
+                      root_score=np.int64(_RS_NONE if root_score is None
+                                          else root_score),
+                      term_done=np.int64(term_done))
+
     while active:
         parts, active = active, []
         ks, cross, scores = _split(q, s, parts, sc)
@@ -225,8 +304,16 @@ def _hb_global(q, s, off: int, out_q, out_s, sc) -> int:
             c = bool(c)
             classify((qlo, qlo + k + 1, slo, slo + mid, sg, c))
             classify((qlo + k + 1, qhi, slo + mid, shi, c, eg))
-    term = _terminals(q, s, terminals, off, out_q, out_s, sc, root)
-    return root_score if root_score is not None else term
+        save()
+    for ci, chunk in enumerate(_terminal_chunks(terminals)):
+        if ci < term_done:
+            continue
+        scores = _walk_chunk(q, s, chunk, off, out_q, out_s, sc)
+        if root in chunk:
+            root_score = int(scores[chunk.index(root)])
+        term_done = ci + 1
+        save()
+    return root_score
 
 
 def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
@@ -258,14 +345,21 @@ def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
 def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
                      device="cuda", mesh=None,
                      checkpoint_path=None) -> Alignment:
-    """Linear-memory alignment construction on `device`."""
+    """Linear-memory alignment construction on `device`.
+
+    ``checkpoint_path``: a durable npz state, updated after every
+    completed unit of work; a killed run called again with the same
+    arguments resumes and gives byte-identical results, and a checkpoint
+    of other inputs is refused. GLOBAL saves its levels and terminal
+    chunks there; semiglobal and local save their endpoint stages there
+    (1: the forward end found, 2: the reverse start found) and the
+    construction of their rectangle under ``checkpoint_path + ".rect"``.
+    The output buffers live on `device`; a save copies them to the host.
+    """
     if mesh is not None:
         raise NotImplementedError(
             "multi-device construction is not ported yet "
             "(ROADMAP queue 1, item 12)")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP queue 1, item 9)")
     mode = Mode.parse(mode)
     sc = check_scoring(scoring)
     q = as_tensor(query, device)
@@ -282,28 +376,52 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
         return Alignment(score, bytes(out_q[:-1].cpu().numpy()),
                          bytes(out_s[:-1].cpu().numpy()), start)
 
-    if mode is Mode.GLOBAL:
-        return result(_hb_global(q, s, 0, out_q, out_s, sc), (0, 0))
+    def rect(qr, sr, off):
+        ckpt = None
+        if checkpoint_path is not None:
+            path = (checkpoint_path if mode is Mode.GLOBAL
+                    else checkpoint_path + ".rect")
+            ckpt = _HbCheckpoint(path, _ckpt_key(qr, sr, Mode.GLOBAL, sc))
+        return _hb_global(qr, sr, off, out_q, out_s, sc, ckpt)
 
-    outs = wavefront.score(q, s, mode, sc)
-    score, ei, ej = linmem.extract_end(outs, m, n, mode).tolist()
+    if mode is Mode.GLOBAL:
+        return result(rect(q, s, 0), (0, 0))
+
+    # the endpoint stages: 1 = forward end found, 2 = reverse start found
+    outer, stage = None, 0
+    if checkpoint_path is not None:
+        outer = _HbCheckpoint(checkpoint_path, _ckpt_key(q, s, mode, sc))
+        ck = outer.load()
+        if ck is not None:
+            stage, score, ei, ej, rscore, ri, rj = (int(ck[k])
+                                                    for k in _STAGE_KEYS)
+
+    def save_stage(*values):
+        if outer is not None:
+            outer.save(**{k: np.int64(v) for k, v in zip(_STAGE_KEYS, values)})
+
+    if stage < 1:
+        outs = wavefront.score(q, s, mode, sc)
+        score, ei, ej = linmem.extract_end(outs, m, n, mode).tolist()
+        save_stage(1, score, ei, ej, 0, 0, 0)
     if ei < 0 or ej < 0 or (mode is Mode.LOCAL and score <= 0):
         # empty alignment: a boundary maximum, or no positive local cell
         return result(score, (ei + 1, ej + 1))
 
-    qr = q[: ei + 1].flip(0)
-    sr = s[: ej + 1].flip(0)
-    if mode is Mode.LOCAL:
-        rscore, ri, rj = wavefront.score(qr, sr, mode, sc)["best"].tolist()
-    else:
-        # GLOBAL inits pin the reverse start to the forward end cell
-        outs = wavefront.score(qr, sr, Mode.GLOBAL, sc)
-        rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
+    if stage < 2:
+        qr = q[: ei + 1].flip(0)
+        sr = s[: ej + 1].flip(0)
+        if mode is Mode.LOCAL:
+            rscore, ri, rj = wavefront.score(qr, sr, mode, sc)["best"].tolist()
+        else:
+            # GLOBAL inits pin the reverse start to the forward end cell
+            outs = wavefront.score(qr, sr, Mode.GLOBAL, sc)
+            rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
+        save_stage(2, score, ei, ej, rscore, ri, rj)
     si, sj = ei - ri, ej - rj
     if si > ei or sj > ej:
         return result(score, (si, sj))
-    sub_score = _hb_global(q[si: ei + 1], s[sj: ej + 1], si + sj, out_q,
-                           out_s, sc)
+    sub_score = rect(q[si: ei + 1], s[sj: ej + 1], si + sj)
     if not sub_score == score == rscore:
         raise RuntimeError(
             f"hirschberg endpoint reduction mismatch: fwd={score} "

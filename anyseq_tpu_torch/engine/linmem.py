@@ -64,31 +64,53 @@ def unpack_codes(words: torch.Tensor, n: int) -> torch.Tensor:
     return c.reshape(*words.shape[:-1], -1)[..., :n].to(torch.uint8)
 
 
-def _sweep(q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
-    m, n = int(q.shape[0]), int(s.shape[0])
+def top_row(mode: Mode, sc: LinearScoring, n: int, device):
+    """The closed-form top boundary row H[-1][0..n)."""
+    return _init(mode, sc, torch.arange(n, dtype=torch.int32, device=device))
+
+
+def left_col(mode: Mode, sc: LinearScoring, i0: int, h: int, device):
+    """The closed-form left boundary of rows [i0, i0 + h): the corner
+    H[i0-1][-1] (an int) and the column H[i0..i0+h)[-1]."""
+    rows = torch.arange(i0, i0 + h, dtype=torch.int32, device=device)
+    return _init(mode, sc, i0 - 1), _init(mode, sc, rows)
+
+
+def _band(q, s, row, corner, col, mode: Mode, sc: LinearScoring,
+          emit_preds: bool):
+    """Relax the h = len(q) rows below the top row `row` = H[i0-1][0..n),
+    with the corner H[i0-1][-1] and the left column `col` = H[i0..i0+h)[-1].
+    Row indices of the outputs count from the top of the band."""
+    h, n = int(q.shape[0]), int(s.shape[0])
     dev = s.device
     g = sc.gap
     local = mode is Mode.LOCAL
     jg = torch.arange(n, dtype=torch.int32, device=dev) * g
     s32 = s.to(torch.int32)
     q32 = q.to(torch.int32)
-    prev = _init(mode, sc, torch.arange(n, dtype=torch.int32, device=dev))
-    last_col = torch.empty(m, dtype=torch.int32, device=dev)
+    col = col.to(torch.int32)
+    match, mismatch = (torch.tensor(x, dtype=torch.int32, device=dev)
+                       for x in (sc.match, sc.mismatch))
+    # diag0[i] = H[i-1][-1] and colg[i] = H[i][-1] + g, as 1-element views
+    corner = torch.as_tensor(corner, dtype=torch.int32, device=dev).reshape(1)
+    diag0 = torch.cat([corner, col[:-1]])
+    colg = col + g
+    prev = row.to(torch.int32)
+    last_col = torch.empty(h, dtype=torch.int32, device=dev)
     best = torch.tensor([SCORE_MIN, -1, -1], dtype=torch.int32, device=dev)
-    preds = (torch.empty((m, -(-n // CODES_PER_WORD)), dtype=torch.int32,
+    preds = (torch.empty((h, -(-n // CODES_PER_WORD)), dtype=torch.int32,
                          device=dev) if emit_preds else None)
-    for i in range(m):
-        col_i = _init(mode, sc, i)
-        col_im1 = _init(mode, sc, i - 1)
-        diag = torch.cat([prev.new_full((1,), col_im1), prev[:-1]])
-        dsub = diag + torch.where(s32 == q32[i], sc.match, sc.mismatch)
+    for i in range(h):
+        diag = torch.cat([diag0[i:i + 1], prev[:-1]])
+        dsub = diag + torch.where(s32 == q32[i], match, mismatch)
         cand = torch.maximum(dsub, prev + g)
         if local:
             cand = cand.clamp_min(0)
-        run = torch.clamp_min(torch.cummax(cand - jg, 0).values, col_i + g)
+        run = torch.maximum(torch.cummax(cand - jg, 0).values,
+                            colg[i:i + 1])
         row = run + jg
         if emit_preds:
-            left = torch.cat([row.new_full((1,), col_i), row[:-1]])
+            left = torch.cat([col[i:i + 1], row[:-1]])
             code = torch.where(
                 row == dsub, PRED_NO_GAP,
                 torch.where(row == left + g, PRED_GAP_Q,
@@ -108,6 +130,32 @@ def _sweep(q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
     if emit_preds:
         outs["preds"] = preds
     return outs
+
+
+def _sweep(q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
+    """The whole DP: the band of all m rows under the closed-form
+    boundary."""
+    dev = s.device
+    return _band(q, s, top_row(mode, sc, int(s.shape[0]), dev),
+                 *left_col(mode, sc, 0, int(q.shape[0]), dev), mode, sc,
+                 emit_preds)
+
+
+def score_band(q_band, s, row_in, corner, col_in, mode: Mode,
+               sc: LinearScoring):
+    """One band of rows [i0, i0 + h) of the DP from an explicit boundary:
+    the plain version of the band kernel (K8).
+
+    q_band: (h,) uint8 query rows of the band; s: (n,) uint8 subject;
+    row_in: (n,) int32 top row H[i0-1][0..n); corner: H[i0-1][-1];
+    col_in: (h,) int32 left column H[i0..i0+h)[-1]. Returns int32 tensors:
+      last_row: (n,) H[i0+h-1][0..n)
+      last_col: (h,) H[i0..i0+h)[n-1]
+      best:     (3,) (score, i, j), the band's first maximum, i counted
+                from the top of the band.
+    """
+    return _band(q_band, s, row_in, corner, col_in, Mode.parse(mode), sc,
+                 emit_preds=False)
 
 
 def score_rows(q, s, mode: Mode, sc: LinearScoring):

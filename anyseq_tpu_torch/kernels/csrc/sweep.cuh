@@ -12,7 +12,14 @@
 // values from a ring in shared memory that the whole CTA fills CHUNK rows
 // ahead: the strip's left boundary column, written by the CTA that swept
 // the strip to the left and published in chunks through a progress flag
-// (or the closed-form boundary for the first strip), and the query.
+// (or, for the first strip, the closed-form boundary or an explicit left
+// column), and the query.
+//
+// A band of rows (band.cu, K8) starts from an explicit boundary instead of
+// the closed form: a top row, its corner and the first strip's left
+// column. Thread t reads its corner H[i0-1][c0-1] from the top row, which
+// the launch only reads (the bottom row goes to another buffer), so a CTA
+// that finishes a strip never overwrites a corner that a later strip reads.
 #pragma once
 
 #include "common.cuh"
@@ -45,6 +52,10 @@ struct Strip {
   uint32_t* preds;          // packed codes, word (i, j / COLS), or null
   int pred_stride;          // words per row
   int* best;                // (score, i, j) of the strip's first maximum
+  // explicit boundary of a band (null: the closed form of global_init)
+  const int* top = nullptr;     // top row H[i0-1][0..n)
+  int corner = 0;               // H[i0-1][-1]
+  const int* left_in = nullptr; // the first strip's left column H[i0+r][-1]
 };
 
 struct SweepShared {
@@ -70,7 +81,7 @@ __device__ __forceinline__ void stage_chunk(const Strip& S, int gap,
     wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK));
     h = load_cg(S.left + r);
   } else {
-    h = boundary(S.global_init, gap, r);
+    h = S.top ? S.left_in[r] : boundary(S.global_init, gap, r);
   }
   sh.ring_h[r % RING] = h;
   sh.ring_q[r % RING] = S.q[r];
@@ -95,9 +106,13 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
   for (int c = 0; c < COLS; ++c) {
     const int j = c0 + c;
     sj[c] = j < S.n ? (int)S.s[j] : -1;
-    H[c] = boundary(S.global_init, g, j);
+    H[c] = !S.top ? boundary(S.global_init, g, j) : j < S.n ? S.top[j] : 0;
   }
-  int diag_in = boundary(S.global_init, g, c0 - 1);  // H[i-1][c0-1]
+  // H[i-1][c0-1]
+  int diag_in = !S.top       ? boundary(S.global_init, g, c0 - 1)
+                : c0 == 0    ? S.corner
+                : c0 <= S.n  ? S.top[c0 - 1]
+                             : 0;
   const int lc = S.last_col ? S.n - 1 - c0 : -1;     // which column is n-1
   int bs = SCORE_MIN, bi = -1, bj = -1;
 

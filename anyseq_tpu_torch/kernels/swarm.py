@@ -15,7 +15,7 @@ from anyseq_tpu_torch.core.types import AffineScoring, Mode
 from anyseq_tpu_torch.engine import batch
 from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD
 from anyseq_tpu_torch.kernels import _build
-from anyseq_tpu_torch.kernels.wavefront import MODE_CODE
+from anyseq_tpu_torch.kernels._sweep import MODE_CODE
 
 plain = batch.swarm_batch
 

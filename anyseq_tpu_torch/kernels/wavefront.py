@@ -8,7 +8,11 @@ the packed codes of ``linmem.pack_codes`` or, affine,
 ``affine.pack_codes4``; affine with ``emit_col_e`` also ``last_col_e``).
 On a CPU tensor it runs the plain version (:data:`plain`,
 :data:`plain_preds`, :data:`plain_affine`, :data:`plain_affine_preds`);
-on a CUDA tensor it launches the kernel.
+on a CUDA tensor it launches the kernel. A score-only sweep of more than
+``band.M_MAX`` query rows runs as a chain of bands
+(``band.score_pair_chained``) on either device, as the JAX package's
+``band.score_pair`` does; :func:`launch` and :func:`launch_affine` sweep
+in one piece at any height.
 """
 from __future__ import annotations
 
@@ -16,26 +20,18 @@ import torch
 
 from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
 from anyseq_tpu_torch.engine import affine, linmem
-from anyseq_tpu_torch.kernels import _build
+from anyseq_tpu_torch.kernels import _build, band
+from anyseq_tpu_torch.kernels._sweep import (
+    MODE_CODE,
+    STRIP,
+    check_pair,
+    reduce_best,
+)
 
 plain = linmem.score_rows
 plain_preds = linmem.score_rows_with_preds
 plain_affine = affine.score_rows_affine
 plain_affine_preds = affine.score_rows_affine_with_preds
-
-STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh)
-MODE_CODE = {Mode.GLOBAL: 0, Mode.SEMIGLOBAL: 1, Mode.LOCAL: 2}
-_INT_MAX = 2**31 - 1
-
-
-def _check(q: torch.Tensor, s: torch.Tensor) -> None:
-    for name, t in (("query", q), ("subject", s)):
-        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
-        if not 0 < t.shape[0] < 2**31 // 2:
-            raise ValueError(f"{name} length {t.shape[0]} out of range")
-    if q.device != s.device:
-        raise ValueError("query and subject must be on one device")
 
 
 def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
@@ -45,12 +41,17 @@ def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
     ``start_gap`` and ``emit_col_e`` are affine options (see
     ``affine.score_rows_affine``); ``start_gap`` runs without preds."""
     mode = Mode.parse(mode)
-    _check(q, s)
+    check_pair(q, s)
     is_affine = isinstance(sc, AffineScoring)
     if not is_affine and (start_gap or emit_col_e):
         raise ValueError("start_gap and emit_col_e need AffineScoring")
     if start_gap and (emit_preds or mode is not Mode.GLOBAL):
         raise ValueError("start_gap is a GLOBAL score-only option")
+    if q.shape[0] > band.M_MAX and not emit_preds:
+        outs = band.score_pair_chained(q, s, mode, sc, start_gap=start_gap)
+        if is_affine and not emit_col_e:
+            del outs["last_col_e"]
+        return outs
     if q.device.type == "cpu":
         if is_affine:
             if emit_preds:
@@ -63,17 +64,6 @@ def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
         return launch_affine(_build.library(), q, s, mode, sc, emit_preds,
                              start_gap, emit_col_e)
     return launch(_build.library(), q, s, mode, sc, emit_preds)
-
-
-def reduce_best(bests: torch.Tensor) -> torch.Tensor:
-    """(S, 3) per-strip first maxima -> (3,) overall first maximum in
-    row-major order: highest score, then smallest i, then smallest j."""
-    s, i, j = bests.unbind(1)
-    top = s.max()
-    at_top = s == top
-    i_min = torch.where(at_top, i, _INT_MAX).min()
-    j_min = torch.where(at_top & (i == i_min), j, _INT_MAX).min()
-    return torch.stack([top, i_min, j_min])
 
 
 def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):

@@ -11,7 +11,7 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1.
-3. Three main paths through the public API with ``device="cuda"``, each
+3. Four main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
    ``align_score`` 1k global, ``align_full_tb`` 10k local, ``align_score``
@@ -29,9 +29,24 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    (``-b ... --score-only``) prints the same scores. Small inputs (the
    golden corpus, a random pair and a small ragged batch, both schemes)
    must give the same results on the card as the plain versions on the
-   CPU.
+   CPU. Genome: ``align_score`` 1 Mbp global linear and local affine
+   (chains of K8 / K8 affine bands, held to one unchained K1 / K5 sweep
+   of the same pair), ``align`` 1 Mbp semiglobal linear (chained endpoint
+   passes, rescored from its strings), ``ResumableScorer`` 1 Mbp global
+   stopped after 5 bands and resumed in a new object (held to the first
+   call; and the band-fill cost of 4,096-row against 65,536-row bands),
+   ``align_hirschberg`` 100k semiglobal affine killed after its second
+   checkpoint save and resumed (held to a clean run), and ``align_score``
+   4.6 Mbp global linear, the E. coli-scale pair, with its peak device
+   memory beside what one K1 sweep's boundary columns would take, held to
+   the same pair reversed; and ``align`` 2.2 Mbp global linear, whose
+   first two levels chain K8 bands and whose 4-part level has parts
+   taller than ``M_MAX`` and runs per half, rescored from its strings.
 4. Each kernel against its plain version again, on the very inputs the
-   main paths gave it in phase 3 (kept as they passed), bit for bit.
+   main paths gave it in phase 3 (kept as they passed), bit for bit. K8
+   also at the whole height of a 1 Mbp band (262,144 rows, the subject
+   cut to TALL_COLS columns), and each whole 1 Mbp band (linear and
+   affine) against the same band run as a chain of CUT_ROWS-row bands.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
    SMs x 64 int32 lanes x the top SM clock), the card's line, and the
@@ -58,27 +73,31 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     # name: (source, the TPU kernel it replaces, the main paths that run it)
     "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
-                        "anyseq_tpu/kernels/band.py:1336", "linear"),
+                        "anyseq_tpu/kernels/band.py:1336", "linear genome"),
     "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
-             "anyseq_tpu/engine/device_tb.py:405", "linear batch"),
+             "anyseq_tpu/engine/device_tb.py:405", "linear batch genome"),
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
-                 "anyseq_tpu/kernels/band.py:1677", "linear"),
+                 "anyseq_tpu/kernels/band.py:1677", "linear genome"),
     "wavefront_affine_score": (
         "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
-        "anyseq_tpu/kernels/band.py:1336", "affine"),
+        "anyseq_tpu/kernels/band.py:1336", "affine genome"),
     "wavefront_affine_preds": (
         "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine"),
     "lastcols_affine": ("anyseq_tpu_torch/kernels/csrc/lastcols_affine.cu",
-                        "anyseq_tpu/kernels/band.py:1677", "affine"),
+                        "anyseq_tpu/kernels/band.py:1677", "affine genome"),
     "walk_affine": ("anyseq_tpu_torch/kernels/csrc/walk_affine.cu",
-                    "anyseq_tpu/engine/device_tb.py:352", "affine"),
+                    "anyseq_tpu/engine/device_tb.py:352", "affine genome"),
     "swarm_score": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
                     "anyseq_tpu/kernels/swarm.py:318", "batch"),
     "swarm_preds": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
                     "anyseq_tpu/kernels/swarm.py:318", "batch"),
+    "band": ("anyseq_tpu_torch/kernels/csrc/band.cu",
+             "anyseq_tpu/kernels/band.py:1443", "genome"),
+    "band_affine": ("anyseq_tpu_torch/kernels/csrc/band_affine.cu",
+                    "anyseq_tpu/kernels/band.py:1443", "genome"),
 }
 # int32 operations a cell (or a walk step) of each kernel, counted from
 # its plain recurrence: linear H = max(diag + sub, max(up, left) + gap)
@@ -87,12 +106,30 @@ KERNELS = {
 # (5), 4-bit codes nine; a walk step decodes its code (shift, and), takes
 # three compares and two decrements and forms its address (8).
 OPS = {"wavefront": 6, "wavefront_affine": 11, "lastcols": 6,
-       "lastcols_affine": 11, "swarm": 6, "swarm_affine": 11,
-       "codes": 5, "codes4": 9, "walk": 8, "walk_affine": 8}
+       "lastcols_affine": 11, "swarm": 6, "swarm_affine": 11, "band": 6,
+       "band_affine": 11, "codes": 5, "codes4": 9, "walk": 8,
+       "walk_affine": 8}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_LANES_PER_SM = 64
 # the affine scoring of the JAX package's bench suite (bench/suite.py)
 AFFINE = (2, -1, -3, -1)
+# the genome path: the JAX bench suite's genome rows (1 Mbp,
+# bench/suite.py:304-324) and the BASELINE north star, E. coli x S.
+# boydii (~4.6 Mbp each, BASELINE.md)
+GENOME_BP = 1_000_000
+ECOLI_BP = 4_600_000
+CKPT_BP = 100_000
+RESUME_BAND_ROWS = 65_536
+FILL_BAND_ROWS = 4_096           # ResumableScorer's default band
+BAND_ROWS = 2_000                # phase 2's bands
+BAND_BP = 40_000
+CUT_ROWS = 2_048                 # phase 4's cut of a genome band
+TALL_COLS = 2_500                # phase 4's cut of its width
+# a linear construction long enough that its 4-part level has parts
+# taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
+HB_GENOME_BP = 2_200_000
+DEVICE = "cuda"
+GENOME_WALLS: dict = {}          # phase 3's genome calls: wall in s
 
 
 def check(cond: bool, what: str) -> None:
@@ -342,6 +379,8 @@ LAUNCHERS = {
     "lastcols": ("lastcols", "launch"),
     "lastcols_affine": ("lastcols", "launch_affine"),
     "swarm": ("swarm", "launch"),
+    "band": ("band", "launch"),
+    "band_affine": ("band", "launch_affine"),
 }
 
 
@@ -667,6 +706,15 @@ def bound(fn: str, args, sm_clock_mhz: float):
             nbytes += 4 * m * -(-n // (8 if affine else 16))
         ops = m * n * (OPS[fn] + (OPS["codes4" if affine else "codes"]
                                   if preds else 0))
+    elif fn.startswith("band"):
+        q, s = args[1], args[2]
+        h, n = q.numel(), s.numel()
+        affine = fn == "band_affine"
+        # rows and columns in and out (H, and affine also F and E), and
+        # each strip's best
+        nbytes = (h + n + 4 * 2 * (n + h) * (2 if affine else 1)
+                  + 12 * -(-n // 1024))
+        ops = h * n * OPS[fn]
     elif fn.startswith("walk"):
         out_q = launcher(fn)(*args)[0]
         steps = int((out_q != ord(" ")).sum())
@@ -693,6 +741,408 @@ def bound(fn: str, args, sm_clock_mhz: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def phase2_band(rng, errors):
+    """K8 and K8 affine against their plain versions on the card: two
+    bands of BAND_ROWS rows of a related pair BAND_BP wide, in 3 modes
+    (and affine GLOBAL start_gap). The first band starts from the
+    closed-form boundary, and its bottom row must equal the unchained
+    K1 / K5 sweep of those rows; the second starts from that sweep's last
+    row (affine: with the first band's F row), as a chain hands it on,
+    and runs once more with 7 CTAs for its strips."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.engine import affine, linmem
+    from anyseq_tpu_torch.kernels import _build, band, wavefront
+
+    dev = torch.device(DEVICE)
+    qb, sb = related_pair(rng, BAND_BP)
+    q = torch.frombuffer(bytearray(qb[:2 * BAND_ROWS]),
+                         dtype=torch.uint8).to(dev)
+    s = torch.frombuffer(bytearray(sb), dtype=torch.uint8).to(dev)
+    n, h = s.numel(), BAND_ROWS
+    lib = _build.library()
+    cases = [(sc, mode, False)
+             for sc in (LinearScoring(), AffineScoring(*AFFINE))
+             for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL)]
+    cases.append((AffineScoring(*AFFINE), Mode.GLOBAL, True))
+    for sc, mode, sg in cases:
+        is_affine = isinstance(sc, AffineScoring)
+        name = "band_affine" if is_affine else "band"
+        tag = f"phase2 K8 {name} {mode.value} start_gap={sg}"
+        if is_affine:
+            first = (q[:h], s, *affine.top_row_affine(mode, sc, n, sg, dev),
+                     *affine.left_col_affine(mode, sc, 0, h, sg, dev),
+                     mode, sc)
+            sweep = wavefront.launch_affine(lib, q[:h], s, mode, sc, False,
+                                            sg, False)
+        else:
+            first = (q[:h], s, linmem.top_row(mode, sc, n, dev),
+                     *linmem.left_col(mode, sc, 0, h, dev), mode, sc)
+            sweep = wavefront.launch(lib, q[:h], s, mode, sc, False)
+        kernel, plain = launcher(name), getattr(band, "plain_affine"
+                                                if is_affine else "plain")
+        err, _, _ = compare(f"{tag} band 0 {h}x{n}",
+                            lambda: kernel(lib, *first),
+                            lambda: plain(*first))
+        errors[name] = max(errors.get(name, 0), err)
+        top = kernel(lib, *first)
+        check(torch.equal(top["last_row"], sweep["last_row"]),
+              f"{tag}: band 0's bottom row == the unchained sweep's")
+        if is_affine:
+            second = (q[h:], s, sweep["last_row"], top["last_row_f"],
+                      *affine.left_col_affine(mode, sc, h, h, sg, dev),
+                      mode, sc)
+        else:
+            second = (q[h:], s, sweep["last_row"],
+                      *linmem.left_col(mode, sc, h, h, dev), mode, sc)
+        err, _, _ = compare(f"{tag} band 1 {h}x{n}",
+                            lambda: kernel(lib, *second),
+                            lambda: plain(*second))
+        errors[name] = max(errors.get(name, 0), err)
+        strips = -(-n // wavefront.STRIP)
+        err = max_abs_err(kernel(lib, *second, grid=7), plain(*second))
+        check(err == 0, f"{tag} band 1 with 7 CTAs for {strips} strips")
+        print(f"{tag} band 1 with 7 CTAs for {strips} strips equal=True",
+              flush=True)
+
+
+def phase3_genome(rng, kept, counts):
+    """The genome path through the public API, driven with every launch
+    count set to 0 just before it and read just after; each call with its
+    wall, GCUPS and launches. Then the checks of the module docstring,
+    and the band-fill cost of ResumableScorer bands."""
+    import dataclasses
+    import tempfile
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.core.types import Mode, as_tensor
+    from anyseq_tpu_torch.engine import hirschberg
+    from anyseq_tpu_torch.engine.resumable import ResumableScorer
+    from anyseq_tpu_torch.kernels import _build, band, wavefront
+
+    sc = pt.LinearScoring()
+    asc = pt.AffineScoring(*AFFINE)
+    q1, s1 = related_pair(rng, GENOME_BP)
+    q5, s5 = related_pair(rng, CKPT_BP)
+    q6, s6 = related_pair(rng, ECOLI_BP)
+    q7, s7 = related_pair(rng, HB_GENOME_BP)
+    score_1 = ("align_score", GENOME_BP, "global", "LinearScoring")
+    score_2 = ("align_score", GENOME_BP, "local", "AffineScoring")
+    align_3 = ("align", GENOME_BP, "semiglobal", "LinearScoring")
+    resume_4 = ("ResumableScorer", GENOME_BP, "global", "LinearScoring")
+    ckpt_5 = ("align_hirschberg", CKPT_BP, "semiglobal", "AffineScoring")
+    ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
+    align_7 = ("align", HB_GENOME_BP, "global", "LinearScoring")
+
+    class Killed(Exception):
+        pass
+
+    def resumed(path):
+        """Call 4: 5 bands, a new object, the rest."""
+        r = ResumableScorer(q1, s1, "global", sc, band_rows=RESUME_BAND_ROWS,
+                            checkpoint_path=path, device=DEVICE)
+        for _ in range(5):
+            r.step()
+        del r
+        r = ResumableScorer.resume(path, q1, s1, "global", sc,
+                                   band_rows=RESUME_BAND_ROWS, device=DEVICE)
+        check(r.band == 5, f"resumed at band {r.band} == 5")
+        r.run()
+        return r
+
+    def killed_and_resumed(path):
+        """Call 5: a clean run, a run whose second save raises, and the
+        rerun that resumes from that save."""
+        clean = hirschberg.align_hirschberg(q5, s5, "semiglobal", asc,
+                                            device=DEVICE)
+        save, saves = hirschberg._HbCheckpoint.save, [0]
+
+        def save_then_fail(self, **arrays):
+            save(self, **arrays)
+            saves[0] += 1
+            if saves[0] == 2:
+                raise Killed()
+
+        hirschberg._HbCheckpoint.save = save_then_fail
+        try:
+            hirschberg.align_hirschberg(q5, s5, "semiglobal", asc,
+                                        device=DEVICE, checkpoint_path=path)
+            check(False, "the checkpointed run was killed at its 2nd save")
+        except Killed:
+            pass
+        finally:
+            hirschberg._HbCheckpoint.save = save
+        again = hirschberg.align_hirschberg(q5, s5, "semiglobal", asc,
+                                            device=DEVICE,
+                                            checkpoint_path=path)
+        check(dataclasses.astuple(again) == dataclasses.astuple(clean),
+              "100k semiglobal affine: resumed run == clean run")
+        return again
+
+    sweeps, levels = {}, []
+    real_score = wavefront.score
+    real_per_half = hirschberg._level_per_half
+
+    def keep_sweep(*args, **kwargs):
+        out = real_score(*args, **kwargs)
+        if current[0] in (score_1, score_2):
+            sweeps[current[0]] = out
+        return out
+
+    def per_half(q, s, parts, sc):
+        levels.append((current[0], len(parts),
+                       max(p[1] - p[0] for p in parts)))
+        return real_per_half(q, s, parts, sc)
+
+    calls = (
+        (score_1, q1, s1, lambda: pt.align_score(q1, s1, "global", sc,
+                                                 device=DEVICE)),
+        (score_2, q1, s1, lambda: pt.align_score(q1, s1, "local", asc,
+                                                 device=DEVICE)),
+        (align_3, q1, s1, lambda: pt.align(q1, s1, "semiglobal", sc,
+                                           device=DEVICE)),
+        (resume_4, q1, s1, lambda: resumed(os.path.join(tmp, "r.npz"))),
+        (ckpt_5, q5, s5, lambda: killed_and_resumed(
+            os.path.join(tmp, "hb.npz"))),
+        (ecoli_6, q6, s6, lambda: pt.align_score(q6, s6, "global", sc,
+                                                 device=DEVICE)),
+        (align_7, q7, s7, lambda: pt.align(q7, s7, "global", sc,
+                                           device=DEVICE)),
+    )
+    torch.cuda.synchronize()
+    for k in _build.launches:
+        _build.launches[k] = 0
+    current = [None]
+    results, deltas = {}, {}
+    wavefront.score = keep_sweep
+    hirschberg._level_per_half = per_half
+    try:
+        with kept_launches(kept, current), \
+                tempfile.TemporaryDirectory() as tmp:
+            for call, q, s, fn in calls:
+                current[0] = call
+                before = dict(_build.launches)
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                delta = {k: v - before[k] for k, v in _build.launches.items()
+                         if v > before[k]}
+                score = (out if isinstance(out, int) else out.score()[0]
+                         if call is resume_4 else out.score)
+                # peak_gb: the allocator's peak during the call; the call's
+                # own is that less what earlier calls' kept inputs hold
+                print(f"phase3 {' '.join(map(str, call))} "
+                      f"{len(q)}x{len(s)} score={score} wall_s={wall:.4f} "
+                      f"gcups={len(q) * len(s) / wall / 1e9:.2f} "
+                      f"peak_gb={peak / 1e9:.3f} "
+                      f"call_peak_gb={(peak - held) / 1e9:.3f} "
+                      f"launches={json.dumps(delta)}", flush=True)
+                results[call], deltas[call] = out, delta
+                GENOME_WALLS[call] = wall
+                if call is ecoli_6:
+                    bands = -(-len(q) // band.M_BAND)
+                    check(delta == {"band": bands},
+                          f"4.6 Mbp global ran {bands} K8 bands alone "
+                          f"({delta})")
+    finally:
+        wavefront.score = real_score
+        hirschberg._level_per_half = real_per_half
+    read_counts("genome", counts)
+    lib = _build.library()
+
+    # calls 1 and 2: the chain against one unchained sweep of the pair
+    q, s = as_tensor(q1, DEVICE), as_tensor(s1, DEVICE)
+    for call, want in (
+            (score_1, lambda: wavefront.launch(lib, q, s, Mode.GLOBAL, sc,
+                                               False)),
+            (score_2, lambda: wavefront.launch_affine(
+                lib, q, s, Mode.LOCAL, asc, False, False, False))):
+        err = max_abs_err(sweeps[call], want())
+        check(err == 0, f"{' '.join(map(str, call))}: chained == unchained")
+        print(f"phase3 {' '.join(map(str, call))}: {len(q1)}x{len(s1)} "
+              f"chained bands == one unchained sweep (last_row, last_col, "
+              f"best)", flush=True)
+    del q, s
+
+    # call 3: rescored from its strings
+    aln = results[align_3]
+    again = pt.align_score(q1, s1, "semiglobal", sc, device=DEVICE)
+    got = rescore(aln, sc)
+    check(got == aln.score == again,
+          f"1 Mbp semiglobal rescore {got} == score {aln.score} == "
+          f"align_score {again}")
+    print(f"phase3 1 Mbp semiglobal rescored={got} align_score={again} "
+          f"equal=True", flush=True)
+
+    # call 4: the resumed run == call 1's chain; then the band fill
+    r = results[resume_4]
+    outs, want = r.outputs(), sweeps[score_1]
+    check(all(torch.equal(outs[k], want[k]) for k in ("last_row", "last_col"))
+          and r.score()[0] == results[score_1],
+          "resumed ResumableScorer == call 1")
+    print(f"phase3 ResumableScorer resumed after 5 of {r.num_bands} bands: "
+          f"last_row, last_col, score == call 1", flush=True)
+    for rows in (FILL_BAND_ROWS, RESUME_BAND_ROWS):
+        r = ResumableScorer(q1, s1, "global", sc, band_rows=rows,
+                            device=DEVICE)
+        bands = RESUME_BAND_ROWS // rows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(bands):
+            r.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"phase3 ResumableScorer band fill: {bands} bands of {rows} "
+              f"rows x {len(s1)} wall_s={wall:.4f} "
+              f"ms_per_band={wall / bands * 1e3:.3f} "
+              f"us_per_row={wall / (bands * rows) * 1e6:.3f}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        r.path = os.path.join(tmp, "r.npz")
+        t0 = time.perf_counter()
+        r.save()
+        print(f"phase3 ResumableScorer save of {len(q1)}x{len(s1)} state: "
+              f"{os.path.getsize(r.path)} bytes in "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
+    del r
+
+    # call 6: against the same pair reversed, a chain with other band
+    # boundaries; the peak memory beside one K1 sweep's boundary columns
+    m6, n6 = len(q6), len(s6)
+    k1_bytes = (-(-n6 // 1024) - 1) * m6 * 4
+    print(f"phase3 4.6 Mbp global: K1's boundary columns would take "
+          f"{k1_bytes / 1e9:.1f} GB", flush=True)
+    t0 = time.perf_counter()
+    rev = pt.align_score(q6[::-1], s6[::-1], "global", sc, device=DEVICE)
+    wall = time.perf_counter() - t0
+    check(rev == results[ecoli_6],
+          f"4.6 Mbp global {results[ecoli_6]} == reversed {rev}")
+    print(f"phase3 4.6 Mbp global reversed: score={rev} equal=True "
+          f"wall_s={wall:.4f}", flush=True)
+
+    # call 7: K8 inside the levels, a level of more than 2 parts whose
+    # tallest passes M_MAX run per half, and the strings rescored
+    runs = [(p, tall) for c, p, tall in levels if c == align_7]
+    print(f"phase3 2.2 Mbp global align: levels run per half (parts, "
+          f"tallest part) {runs}", flush=True)
+    check(deltas[align_7].get("band", 0) > 0, "2.2 Mbp align ran K8")
+    check(any(p > 2 and tall > band.M_MAX for p, tall in runs),
+          "2.2 Mbp align ran a level of > 2 parts taller than M_MAX per half")
+    aln = results[align_7]
+    again = pt.align_score(q7, s7, "global", sc, device=DEVICE)
+    got = rescore(aln, sc)
+    check(got == aln.score == again,
+          f"2.2 Mbp global rescore {got} == score {aln.score} == "
+          f"align_score {again}")
+    print(f"phase3 2.2 Mbp global rescored={got} align_score={again} "
+          f"equal=True", flush=True)
+
+
+def chained_cuts(fn, args, rows: int):
+    """The K8 (or K8 affine) band of `args` run as a chain of bands of
+    `rows` rows, each from the bottom row (+ F row) of the one above: the
+    outputs of the one launch, merged as ``band.score_pair_chained``
+    merges them."""
+    affine = fn == "band_affine"
+    if affine:
+        lib, q, s, row, rowf, corner, col, cole, mode, sc = args
+    else:
+        lib, q, s, row, corner, col, mode, sc = args
+    cols, cols_e, best = [], [], None
+    for i0 in range(0, q.numel(), rows):
+        cut = slice(i0, i0 + rows)
+        top = corner if i0 == 0 else int(col[i0 - 1])
+        if affine:
+            out = launcher(fn)(lib, q[cut], s, row, rowf, top, col[cut],
+                               cole[cut], mode, sc)
+            rowf = out["last_row_f"]
+            cols_e.append(out["last_col_e"])
+        else:
+            out = launcher(fn)(lib, q[cut], s, row, top, col[cut], mode, sc)
+        row = out["last_row"]
+        cols.append(out["last_col"])
+        b = out["best"] + torch.tensor([0, i0, 0], dtype=torch.int32,
+                                       device=s.device)
+        if best is None or int(b[0]) > int(best[0]):
+            best = b
+    res = {"last_row": row, "last_col": torch.cat(cols), "best": best}
+    if affine:
+        res.update(last_row_f=rowf, last_col_e=torch.cat(cols_e))
+    return res
+
+
+def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
+    """K8 and K8 affine against their plain versions on the first band of
+    the 1 Mbp genome scores, cut to CUT_ROWS rows (the times reported in
+    the JSON line); K8 at the whole height of that band, its subject cut
+    to TALL_COLS columns (the plain version takes ~2.7 ms a row at the
+    full width, ~12 min for the band); each whole 1 Mbp band against
+    itself run as a chain of CUT_ROWS-row bands; then the first whole
+    band of the 1 Mbp and 4.6 Mbp global scores alone, the kernel's time
+    and its bound (the 1 Mbp ones into `whole`, for the JSON line)."""
+    score_1 = ("align_score", GENOME_BP, "global", "LinearScoring")
+    score_2 = ("align_score", GENOME_BP, "local", "AffineScoring")
+    ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
+
+    def first_band(call, fn):
+        return next(args for c, f, args in kept if c == call and f == fn)
+
+    for call, fn, tag in ((score_1, "band", "K8"),
+                          (score_2, "band_affine", "K8 affine")):
+        args = list(first_band(call, fn))
+        # the band's rows and its left columns (H, and affine E), cut
+        for i in ((1, 5) if fn == "band" else (1, 6, 7)):
+            args[i] = args[i][:CUT_ROWS]
+        cut = tuple(args)
+        s = cut[2]
+        label = (f"phase4 {tag} {fn} {' '.join(map(str, call))} "
+                 f"{CUT_ROWS}x{s.numel()}")
+        err, ms, plain_ms = compare(label, lambda: launcher(fn)(*cut),
+                                    lambda: plain_of(fn, cut), reps=3)
+        errors[fn] = max(errors.get(fn, 0), err)
+        timings[fn] = (ms, plain_ms, *bound(fn, cut, sm_clock_mhz))
+    args = list(first_band(score_1, "band"))
+    args[2], args[3] = args[2][:TALL_COLS], args[3][:TALL_COLS]
+    tall = tuple(args)
+    label = (f"phase4 K8 band {' '.join(map(str, score_1))} whole height "
+             f"{tall[1].numel()}x{TALL_COLS}")
+    err, _, _ = compare(label, lambda: launcher("band")(*tall),
+                        lambda: plain_of("band", tall), reps=1)
+    errors["band"] = max(errors["band"], err)
+    for call, fn in ((score_1, "band"), (score_2, "band_affine")):
+        args = first_band(call, fn)
+        err = max_abs_err(launcher(fn)(*args),
+                          chained_cuts(fn, args, CUT_ROWS))
+        check(err == 0, f"{fn} {call}: whole band == chained cuts")
+        print(f"phase4 {fn} {' '.join(map(str, call))} whole band "
+              f"{args[1].numel()}x{args[2].numel()} == a chain of "
+              f"{-(-args[1].numel() // CUT_ROWS)} bands of {CUT_ROWS} rows",
+              flush=True)
+    for call, fn in ((score_1, "band"), (score_2, "band_affine"),
+                     (ecoli_6, "band")):
+        args = first_band(call, fn)
+        ms = cuda_ms(lambda: launcher(fn)(*args), 1)
+        cells = args[1].numel() * args[2].numel()
+        b_ms, by = bound(fn, args, sm_clock_mhz)
+        print(f"phase4 {fn} alone {' '.join(map(str, call))} first band "
+              f"{args[1].numel()}x{args[2].numel()} kernel_ms={ms:.3f} "
+              f"gcups={cells / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
+              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+        if call is not ecoli_6:
+            whole[fn] = (f"{args[1].numel()}x{args[2].numel()}", ms, b_ms)
+    # each whole chained score: the sum of its bands' bounds beside its wall
+    for call, fn in ((score_1, "band"), (score_2, "band_affine"),
+                     (ecoli_6, "band")):
+        b_s = sum(bound(fn, args, sm_clock_mhz)[0]
+                  for c, f, args in kept if c == call and f == fn) / 1e3
+        wall = GENOME_WALLS[call]
+        print(f"phase4 {fn} chain {' '.join(map(str, call))}: bound_s="
+              f"{b_s:.4f} wall_s={wall:.4f} share={b_s / wall:.3f}",
+              flush=True)
 
 
 def phase4(kept, timings, errors, sm_clock_mhz):
@@ -833,15 +1283,19 @@ def main() -> int:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
 
     rng = np.random.default_rng(SEED)
-    timings, errors, kept = {}, {}, []
+    timings, errors, kept, whole = {}, {}, [], {}
     phase2(rng, errors)
+    phase2_band(rng, errors)
     counts = phase3(rng, kept)
     phase3_batch(rng, kept, counts)
     phase3_small(rng)
+    phase3_genome(rng, kept, counts)
     phase4(kept, timings, errors, sm_clock_mhz)
+    phase4_band(kept, timings, errors, whole, sm_clock_mhz)
 
     # no PyTorch call computes a DP alignment or a traceback walk, so no
-    # kernel has a library yardstick
+    # kernel has a library yardstick; K8's times are at a cut of a band,
+    # and beside them its time at a whole 1 Mbp band
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errors[name],
@@ -851,6 +1305,11 @@ def main() -> int:
          "bound_by": timings[name][3], "library_ms": None}
         for name, (src, rep, _) in KERNELS.items()
     ]
+    for k in kernels:
+        if k["name"] in whole:
+            shape, ms, b_ms = whole[k["name"]]
+            k.update(whole_band=shape, whole_band_ms=round(ms, 4),
+                     whole_band_bound_ms=round(b_ms, 6))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

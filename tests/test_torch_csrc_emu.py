@@ -14,8 +14,15 @@ import pytest
 import torch
 
 from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
-from anyseq_tpu_torch.engine import batch
-from anyseq_tpu_torch.kernels import _build, lastcols, swarm, walk, wavefront
+from anyseq_tpu_torch.engine import affine, batch, linmem
+from anyseq_tpu_torch.kernels import (
+    _build,
+    band,
+    lastcols,
+    swarm,
+    walk,
+    wavefront,
+)
 
 SC = LinearScoring(2, -1, -1)
 # the bench suite's affine scoring, and a free extension (ge = 0)
@@ -223,6 +230,69 @@ def test_swarm_kernel(emu_lib, B, M, N, mode, sc):
         assert got.keys() == want.keys()
         for k in want:
             assert torch.equal(got[k], want[k]), (k, need_pos, preds)
+
+
+def _band_case(q, s, i0, mode, sc, start_gap=False):
+    """The arguments of a band of rows [i0, len(q)) whose top row comes
+    from the plain sweep of the rows above (the F row too, affine)."""
+    n, h = s.shape[0], q.shape[0] - i0
+    if isinstance(sc, AffineScoring):
+        top = affine._band(q[:i0], s, *affine.top_row_affine(
+            mode, sc, n, start_gap, s.device), *affine.left_col_affine(
+                mode, sc, 0, i0, start_gap, s.device), mode, sc, False)
+        corner, col, cole = affine.left_col_affine(mode, sc, i0, h,
+                                                   start_gap, s.device)
+        return (q[i0:], s, top["last_row"], top["last_row_f"], corner, col,
+                cole, mode, sc)
+    top = linmem.score_band(q[:i0], s, linmem.top_row(mode, sc, n, s.device),
+                            *linmem.left_col(mode, sc, 0, i0, s.device),
+                            mode, sc)
+    return (q[i0:], s, top["last_row"],
+            *linmem.left_col(mode, sc, i0, h, s.device), mode, sc)
+
+
+def _check_band(lib, args, grid):
+    if isinstance(args[-1], AffineScoring):
+        got = band.launch_affine(lib, *args, grid=grid)
+        want = band.plain_affine(*args)
+    else:
+        got = band.launch(lib, *args, grid=grid)
+        want = band.plain(*args)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("sc", [SC] + ASC, ids=str)
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("i0,h,n", [(300, 130, 2500), (70, 64, 1024),
+                                    (5, 1, 1), (40, 65, 3100)])
+def test_band_kernel(emu_lib, i0, h, n, mode, sc):
+    """K8 / K8 affine from the top row of the plain sweep above: several
+    ragged strips (n not a multiple of 1024) with fewer CTAs than strips
+    (the host emulation runs one CTA; grid=2 caps a launch the same way
+    on the card), row counts on both sides of the 64-row staging chunks;
+    GLOBAL affine bands also under the Myers-Miller start_gap boundary."""
+    rng = np.random.default_rng(i0 * h + n)
+    q, s = _seq(rng, i0 + h), _seq(rng, n)
+    _check_band(emu_lib, _band_case(q, s, i0, mode, sc), grid=2)
+    if isinstance(sc, AffineScoring) and mode is Mode.GLOBAL:
+        _check_band(emu_lib, _band_case(q, s, i0, mode, sc, start_gap=True),
+                    grid=0)
+
+
+@pytest.mark.parametrize("sc", [SC, ASC[0]], ids=str)
+@pytest.mark.parametrize("case", ["self", "repeat"])
+def test_band_kernel_local_ties(emu_lib, case, sc):
+    """Equal LOCAL maxima across threads and strips inside a band: the
+    first in row-major order, counted from the band's top row."""
+    if case == "self":
+        q = s = _seq(np.random.default_rng(1), 1500)
+        q = torch.cat([q[:300], q])
+    else:
+        q = torch.full((120,), 65, dtype=torch.uint8)
+        s = torch.full((1500,), 65, dtype=torch.uint8)
+    _check_band(emu_lib, _band_case(q, s, 60, Mode.LOCAL, sc), grid=0)
 
 
 def test_reduce_best_order():

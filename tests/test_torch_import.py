@@ -14,7 +14,14 @@ import anyseq_tpu_torch as pt
 from anyseq_tpu.io.alignment import print_alignment as jax_print_alignment
 from anyseq_tpu_torch.engine import hirschberg
 from anyseq_tpu_torch.io.alignment import print_alignment
-from anyseq_tpu_torch.kernels import _build, lastcols, swarm, walk, wavefront
+from anyseq_tpu_torch.kernels import (
+    _build,
+    band,
+    lastcols,
+    swarm,
+    walk,
+    wavefront,
+)
 
 from conftest import mutate, random_dna
 
@@ -27,9 +34,12 @@ MODULES = [
     "anyseq_tpu_torch.engine.device_tb",
     "anyseq_tpu_torch.engine.hirschberg",
     "anyseq_tpu_torch.engine.linmem",
+    "anyseq_tpu_torch.engine.resumable",
     "anyseq_tpu_torch.io.alignment",
     "anyseq_tpu_torch.io.fasta",
     "anyseq_tpu_torch.kernels._build",
+    "anyseq_tpu_torch.kernels._sweep",
+    "anyseq_tpu_torch.kernels.band",
     "anyseq_tpu_torch.kernels.lastcols",
     "anyseq_tpu_torch.kernels.swarm",
     "anyseq_tpu_torch.kernels.walk",
@@ -84,9 +94,9 @@ def test_scoring_from_reference():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         pt.align(b"ACGT", b"ACGT", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         hirschberg.align_hirschberg(b"ACGT", b"ACGT", "global", device="cpu",
-                                    checkpoint_path="ck.npz")
+                                    mesh=object(), checkpoint_path="ck.npz")
 
 
 def test_inputs_str_bytes_array_agree():
@@ -133,6 +143,12 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError, match="device"):
             swarm.score_pairs_swarm(q[None], q[None], ms, ms, pt.Mode.LOCAL,
                                     sc)
+    row = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        band.score_band(q, q, row, 0, row, pt.Mode.GLOBAL, pt.LinearScoring())
+    with pytest.raises(ValueError, match="device"):
+        band.score_band(q, q, row, 0, row, pt.Mode.GLOBAL, pt.AffineScoring(),
+                        row, row)
 
 
 def test_every_kernel_has_a_launch_count():
@@ -141,8 +157,9 @@ def test_every_kernel_has_a_launch_count():
     assert set(_build.launches) == {
         "wavefront_score", "wavefront_preds", "walk", "lastcols",
         "wavefront_affine_score", "wavefront_affine_preds",
-        "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds"}
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) == 7
+        "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
+        "band", "band_affine"}
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) == 9
 
 
 def test_wrappers_check_types():

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of anyseq_tpu_torch's batch calls goes, on one CUDA card.
+"""Where the time of anyseq_tpu_torch's batch and genome calls goes, on
+one CUDA card.
 
     python3 tools/profile_torch.py
 
 For each batch call of ``chip_smoke.py``'s batch path (the same seeded
-pairs): one cold call, three warm walls (host clock around a call that
-ends in ``torch.cuda.synchronize()``), then one warm call under
+pairs), and for its 1 Mbp genome calls (``align_score`` global linear
+and local affine, chained K8 bands; ``align`` semiglobal linear): one
+cold call, three warm walls (host clock around a call that ends in
+``torch.cuda.synchronize()``), then one warm call under
 ``torch.profiler``. Prints per call the walls, the device busy time (the
 union of the profiled kernel and copy intervals), the idle share
 (1 - busy / fastest warm wall), and the device time by kernel name;
@@ -79,12 +82,8 @@ def main() -> int:
         ("align_batch", 256, 1000, "semiglobal", sc),
         ("align_scores_batch", 4096, 200, "local", sc),
     )
-    for name, n, count, mode, scoring in calls:
-        qs, ss = map(list, zip(*sets[n][:count]))
 
-        def call():
-            return getattr(pt, name)(qs, ss, mode, scoring, device="cuda")
-
+    def report(label, call):
         walls = []
         for _ in range(4):
             t0 = time.perf_counter()
@@ -94,11 +93,22 @@ def main() -> int:
         busy, by_name = profile(call)
         fastest = min(walls[1:]) * 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"{name} {mode} {type(scoring).__name__} {count} pairs ~{n} "
-              f"bp: cold {walls[0] * 1e3:.3f} ms, warm "
+        print(f"{label}: cold {walls[0] * 1e3:.3f} ms, warm "
               f"{', '.join(f'{w * 1e3:.3f}' for w in walls[1:])} ms; device "
               f"busy {busy:.3f} ms, idle {1 - busy / fastest:.3f}; "
               + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top), flush=True)
+
+    for name, n, count, mode, scoring in calls:
+        qs, ss = map(list, zip(*sets[n][:count]))
+        report(f"{name} {mode} {type(scoring).__name__} {count} pairs ~{n} "
+               f"bp", lambda: getattr(pt, name)(qs, ss, mode, scoring,
+                                                device="cuda"))
+    q, s = chip_smoke.related_pair(rng, chip_smoke.GENOME_BP)
+    for name, mode, scoring in (("align_score", "global", sc),
+                                ("align_score", "local", asc),
+                                ("align", "semiglobal", sc)):
+        report(f"{name} {mode} {type(scoring).__name__} {len(q)}x{len(s)}",
+               lambda: getattr(pt, name)(q, s, mode, scoring, device="cuda"))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
