@@ -12,7 +12,10 @@ Reference: src/main.cpp:124-235. ``-i`` and ``-r`` print the same
 (main.cpp:29-57); ``-b`` aligns record i of one file against record i of
 the other through the batch API. ``--device`` (default ``cuda``) is the
 device every call runs on; ``--device cpu`` runs the kernels' plain torch
-versions. ``--mesh`` is not ported yet and exits with an error.
+versions. ``--mesh`` runs the alignments (and ``-b --score-only``'s
+scores) over a mesh of every CUDA device, as the JAX package's ``--mesh``
+does over every JAX device; with ``--device cpu`` the mesh is the CPU
+repeated CPU_MESH times.
 
 Deviations from the reference (as in the JAX package): random mode uses
 numpy's seeded PCG64 instead of C++'s ``mt19937_64``; ``--mode``,
@@ -25,6 +28,10 @@ import sys
 import time
 
 import numpy as np
+
+# devices of a --mesh on the CPU (the JAX package's tests run 8 virtual
+# CPU devices)
+CPU_MESH = 8
 
 
 def _random_string(rng, minlen: int, maxlen: int) -> bytes:
@@ -44,9 +51,10 @@ def _timed(name: str, fn, out):
 
 def benchmark_alignments(query: bytes, subject: bytes, scoring, out,
                          fulltb: bool = False, do_print: bool = False,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """The reference's benchmark_alignments (main.cpp:60-86): three score
-    calls then three alignment constructions."""
+    calls then three alignment constructions (over `mesh` where given,
+    unless ``fulltb``)."""
     import anyseq_tpu_torch as pt
     from anyseq_tpu_torch.io.alignment import print_alignment
 
@@ -63,7 +71,8 @@ def benchmark_alignments(query: bytes, subject: bytes, scoring, out,
         aln = _timed(
             f"{mode} alignment",
             lambda m=mode: pt.align(query, subject, m, scoring,
-                                    traceback=traceback, device=device),
+                                    traceback=traceback, device=device,
+                                    mesh=None if fulltb else mesh),
             out,
         )
         if do_print:
@@ -103,7 +112,8 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--mesh", action="store_true",
-        help="distribute over all visible devices (not ported yet)",
+        help="distribute over all visible CUDA devices (or, with --device "
+             "cpu, a mesh of CPU devices)",
     )
     parser.add_argument(
         "--mode", choices=["all", "global", "semiglobal", "local"],
@@ -140,10 +150,12 @@ def main(argv=None) -> int:
     else:
         scoring = LinearScoring(*args.scores)
 
+    mesh = None
     if args.mesh:
-        print("--mesh: multi-device runs are not ported yet (ROADMAP "
-              "queue 1, item 12)", file=sys.stderr)
-        return 2
+        from anyseq_tpu_torch.dist.mesh import make_mesh
+
+        mesh = make_mesh(devices=None if args.device.startswith("cuda")
+                         else [args.device] * CPU_MESH)
 
     if args.parity:
         from anyseq_tpu_torch.parity import run_parity
@@ -170,9 +182,11 @@ def main(argv=None) -> int:
         import anyseq_tpu_torch as pt
 
         if args.score_only:
+            from anyseq_tpu_torch.dist.batch import align_scores_batch_sharded
+
             t0 = time.perf_counter()
-            scores = pt.align_scores_batch(qs, ss, mode, scoring,
-                                           device=args.device)
+            scores = align_scores_batch_sharded(qs, ss, mode, scoring, mesh,
+                                                device=args.device)
             ms = int(round((time.perf_counter() - t0) * 1000))
             print(f"testing batch {mode} score {ms} ms", file=out)
             for i, sc_ in enumerate(scores):
@@ -181,7 +195,8 @@ def main(argv=None) -> int:
             from anyseq_tpu_torch.io.alignment import print_alignment
 
             t0 = time.perf_counter()
-            alns = pt.align_batch(qs, ss, mode, scoring, device=args.device)
+            alns = pt.align_batch(qs, ss, mode, scoring, mesh=mesh,
+                                  device=args.device)
             ms = int(round((time.perf_counter() - t0) * 1000))
             print(f"testing batch {mode} alignment {ms} ms", file=out)
             for i, aln in enumerate(alns):
@@ -219,7 +234,7 @@ def main(argv=None) -> int:
 
     if args.mode == "all":
         benchmark_alignments(query, subject, scoring, out, args.fulltb,
-                             args.do_print, device=args.device)
+                             args.do_print, device=args.device, mesh=mesh)
     else:
         import anyseq_tpu_torch as pt
         from anyseq_tpu_torch.io.alignment import print_alignment
@@ -232,7 +247,8 @@ def main(argv=None) -> int:
             f"{args.mode} alignment",
             lambda: pt.align(query, subject, args.mode, scoring,
                              traceback="full" if args.fulltb else "auto",
-                             device=args.device),
+                             device=args.device,
+                             mesh=None if args.fulltb else mesh),
             out,
         )
         if args.do_print:

@@ -59,7 +59,9 @@ def align(query, subject, mode="global", scoring=LinearScoring(),
     """Construct an alignment.
 
     traceback: "hirschberg" (linear memory), "full" (O(m*n) predecessor
-    codes), or "auto" (full up to 2^22 cells, Hirschberg above)."""
+    codes), or "auto" (full up to 2^22 cells, Hirschberg above). With a
+    ``mesh`` (``dist.mesh.Mesh``) the construction runs over its devices
+    (``hirschberg.align_hirschberg``) and `device` is not read."""
     mode = Mode.parse(mode)
     if mesh is not None:
         # as in the JAX package, a mesh always means Hirschberg

@@ -382,8 +382,9 @@ def swarm_batch(q, s, ms, ns, mode: Mode, sc, sgaps=None,
                         the last column, 0, 0); LOCAL (score, i, j) of the
                         first maximum in row-major order, (score, 0, 0)
                         without ``need_pos``
-      preds     (B, M, ceil(N/16))  with ``emit_preds`` (linear only): the
-                        2-bit codes of ``linmem.pack_codes``
+      preds     with ``emit_preds``: (B, M, ceil(N/16)) 2-bit codes of
+                        ``linmem.pack_codes`` (linear), (B, M, ceil(N/8))
+                        4-bit codes of ``affine.pack_codes4`` (affine)
 
     Every entry past a problem's lengths is 0."""
     mode = Mode.parse(mode)
@@ -398,7 +399,9 @@ def swarm_batch(q, s, ms, ns, mode: Mode, sc, sgaps=None,
     imask = torch.arange(M, device=dev)[None, :] < ms[:, None]
     lastj = (ns - 1)[:, None]
     last_cols = torch.zeros((B, M), **i32)
-    preds = (torch.zeros((B, M, -(-N // CODES_PER_WORD)), **i32)
+    per_word, pack = ((CODES4_PER_WORD, pack_codes4) if affine
+                      else (CODES_PER_WORD, pack_codes))
+    preds = (torch.zeros((B, M, -(-N // per_word)), **i32)
              if emit_preds else None)
     vmax = torch.full((B,), SCORE_MIN, **i32)
     vi = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -406,15 +409,15 @@ def swarm_batch(q, s, ms, ns, mode: Mode, sc, sgaps=None,
     if affine:
         if sgaps is None:
             sgaps = torch.zeros(B, dtype=torch.bool, device=dev)
-        rows = ((i, H, None) for i, H, _, _ in
-                _affine_rows(q, s, ms, mode, sc, sgaps, False))
+        rows = ((i, H, code) for i, H, _, code in
+                _affine_rows(q, s, ms, mode, sc, sgaps, emit_preds))
     else:
         rows = _rows(q, s, ms, mode, sc, emit_preds)
     for i, row, code in rows:
         last_cols[:, i] = row.gather(1, lastj)[:, 0]
         if emit_preds:
             live = jmask & (i < ms)[:, None]
-            preds[:, i] = pack_codes(torch.where(live, code, PRED_NONE))
+            preds[:, i] = pack(torch.where(live, code, PRED_NONE))
         if mode is Mode.LOCAL:
             masked = torch.where(jmask, row, SCORE_MIN)
             rarg = torch.argmax(masked, 1)        # first maximum of the row
@@ -577,19 +580,27 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
     problem from its end cell (GLOBAL (m-1, n-1); LOCAL the best cell,
     no walk where the score is <= 0; SEMIGLOBAL the extracted end); the
     chunk's scores, cells and strings come back in one copy. Affine gaps
-    go pair by pair through ``api.align``, as in the JAX package.
+    go pair by pair through ``api.align``, as in the JAX package. With a
+    ``mesh`` (``dist.mesh.Mesh``), linear pairs are split over its devices
+    in order (``dist.batch.align_batch_sharded``) and affine pairs run on
+    its first device; `device` is not read.
     ``batch_size`` is accepted for the JAX package's signature: the chunk
     size is set by device memory."""
     from anyseq_tpu_torch.engine import api
     from anyseq_tpu_torch.kernels import swarm, walk
 
     del batch_size
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device batches are not ported yet (ROADMAP queue 1, "
-            "item 12)")
     mode = Mode.parse(mode)
     sc = check_scoring(scoring)
+    if mesh is not None:
+        from anyseq_tpu_torch.dist import batch as dist_batch
+        from anyseq_tpu_torch.dist.mesh import check_mesh
+
+        check_mesh(mesh)
+        if not isinstance(sc, AffineScoring):
+            return dist_batch.align_batch_sharded(queries, subjects, mode,
+                                                  sc, mesh)
+        device = mesh.device_list()[0]
     if isinstance(sc, AffineScoring):
         if len(queries) != len(subjects):
             raise ValueError("queries and subjects must have equal length")

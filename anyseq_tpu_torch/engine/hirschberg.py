@@ -2,8 +2,8 @@
 Myers-Miller for affine (Gotoh) gaps.
 
 The port of the JAX package's ``engine/hirschberg.py`` (``_hb_global``,
-``_hb_global_affine``, ``_HbCheckpoint`` and ``align_hirschberg`` without
-the mesh branches), with the same splits and therefore the same strings:
+``_hb_global_affine``, ``_HbCheckpoint`` and ``align_hirschberg``, with
+its mesh branches), with the same splits and therefore the same strings:
 
 * every divide level runs all its parts at once: a part's left half
   forward and its right half reversed give the two boundary columns, and
@@ -32,6 +32,14 @@ the mesh branches), with the same splits and therefore the same strings:
 * semiglobal and local alignments first find the end cell (forward sweep)
   and the start cell (reverse sweep on the reversed end prefix), then run
   the global construction on that rectangle;
+* with ``mesh`` (a ``dist.mesh.Mesh``), a level of at most 4 parts whose
+  narrowest half is at least ``sp_min_width`` columns wide (default 2,048
+  a device) runs each half over the whole mesh (``dist.sharded``, the
+  collective sweep K10, oriented as above); the other levels and the
+  terminal stripes run data-parallel over the mesh's devices
+  (``dist.batch``: K4 / K5L, pred sweeps + K3 / K6), and the endpoint
+  passes run over the mesh. Every split, and so every string, is the
+  single-device one;
 * with ``checkpoint_path``, each completed level and terminal chunk
   rewrites one npz (the parts still to divide, the terminal stripes, the
   output buffers copied to the host, the root score), and the endpoint
@@ -59,6 +67,9 @@ from anyseq_tpu_torch.core.types import (
     as_tensor,
     check_scoring,
 )
+from anyseq_tpu_torch.dist import batch as dist_batch
+from anyseq_tpu_torch.dist import sharded
+from anyseq_tpu_torch.dist.mesh import check_mesh
 from anyseq_tpu_torch.engine import batch, linmem
 from anyseq_tpu_torch.engine.resumable import atomic_savez
 from anyseq_tpu_torch.kernels import band, lastcols, wavefront
@@ -130,9 +141,19 @@ def _stack(cols):
                         for c in cols])
 
 
-def _level_per_half(q, s, parts, sc):
-    """Boundary columns of a level of few, wide parts, one sweep per half:
-    [L, R] for linear gaps, [HL, EL, HR, ER] for affine."""
+def _sweep(q, s, mode, sc, mesh=None, **kwargs):
+    """One score sweep: K1 / K5 (or a chain of K8 bands) on q's device, or
+    the collective sweep over `mesh`."""
+    if mesh is None:
+        return wavefront.score(q, s, mode, sc, **kwargs)
+    kwargs.pop("emit_col_e", None)     # the collective sweep always has it
+    return sharded.score_pair_sharded(q, s, mode, sc, mesh, **kwargs)
+
+
+def _level_per_half(q, s, parts, sc, mesh=None):
+    """Boundary columns of a level of few, wide parts, one sweep per half
+    (over `mesh` where given): [L, R] for linear gaps, [HL, EL, HR, ER] for
+    affine."""
     affine = isinstance(sc, AffineScoring)
     cols = []
     for qlo, qhi, slo, shi, sg, eg in parts:
@@ -141,19 +162,20 @@ def _level_per_half(q, s, parts, sc):
                              (q[qlo:qhi].flip(0), s[slo + mid:shi].flip(0),
                               eg)):
             if affine:
-                outs = wavefront.score(qa, sa, Mode.GLOBAL, sc,
-                                       start_gap=flag, emit_col_e=True)
+                outs = _sweep(qa, sa, Mode.GLOBAL, sc, mesh, start_gap=flag,
+                              emit_col_e=True)
                 cols.append((outs["last_col"], outs["last_col_e"]))
             else:
-                outs = wavefront.score(sa, qa, Mode.GLOBAL, sc)
+                outs = _sweep(sa, qa, Mode.GLOBAL, sc, mesh)
                 cols.append((outs["last_row"],))
     kinds = [_stack(list(c)) for c in zip(*cols)]
     return [k[0::2] for k in kinds] + [k[1::2] for k in kinds]
 
 
-def _level_batched(q, s, parts, sc):
-    """Boundary columns of a level, every half in one K4 / K5L sweep:
-    [L, R] for linear gaps, [HL, EL, HR, ER] for affine."""
+def _level_batched(q, s, parts, sc, mesh=None):
+    """Boundary columns of a level, every half in one K4 / K5L sweep (one
+    a device of `mesh` where given): [L, R] for linear gaps, [HL, EL, HR,
+    ER] for affine."""
     dev = q.device
     qlo, slo, hs, ws, rev, sgaps = [], [], [], [], [], []
     for a, b, c, d, sg, eg in parts:
@@ -173,19 +195,27 @@ def _level_batched(q, s, parts, sc):
     s3 = _gather(s, t(slo), t(ws), rev_t, max(ws))
     hs, ws = t(hs, torch.int32), t(ws, torch.int32)
     if isinstance(sc, AffineScoring):
-        kinds = lastcols.last_cols_affine(q3, s3, hs, ws, sc,
-                                          t(sgaps, torch.bool))
-    else:
+        args = (q3, s3, hs, ws, sc, t(sgaps, torch.bool))
+        kinds = (lastcols.last_cols_affine(*args) if mesh is None else
+                 dist_batch.last_cols_batch_affine_sharded(*args, mesh))
+    elif mesh is None:
         kinds = (lastcols.last_cols(q3, s3, hs, ws, sc),)
+    else:
+        kinds = (dist_batch.last_cols_batch_sharded(q3, s3, hs, ws, sc,
+                                                    mesh),)
     return [k[0::2] for k in kinds] + [k[1::2] for k in kinds]
 
 
-def _split(q, s, parts, sc):
+def _split(q, s, parts, sc, mesh=None, sp_min_width: int = 0):
     """Split rows of a level: (k, crosses_in_gap, score) per part."""
-    per_half = (len(parts) <= 2
-                or max(p[1] - p[0] for p in parts) > band.M_MAX)
+    if mesh is None:
+        per_half = (len(parts) <= 2
+                    or max(p[1] - p[0] for p in parts) > band.M_MAX)
+    else:
+        per_half = (len(parts) <= 4 and min((p[3] - p[2]) // 2 for p in parts)
+                    >= sp_min_width)
     level = _level_per_half if per_half else _level_batched
-    cols = level(q, s, parts, sc)
+    cols = level(q, s, parts, sc, mesh)
     dev = cols[0].device
 
     def t(i, dtype=torch.int64):
@@ -218,10 +248,11 @@ def _terminal_chunks(terminals) -> list[list[tuple]]:
             for lo in range(0, len(parts), TERMINAL_BATCH)]
 
 
-def _walk_chunk(q, s, chunk, off, out_q, out_s, sc) -> torch.Tensor:
+def _walk_chunk(q, s, chunk, off, out_q, out_s, sc, mesh=None) -> torch.Tensor:
     """Walk one chunk of terminal stripes (of one padded shape) into
     out_q / out_s, whose last slot takes the writes of unwalked
-    positions; returns their scores."""
+    positions, split over the devices of `mesh` where given; returns their
+    scores."""
     dev = q.device
     dump = out_q.shape[0] - 1
 
@@ -236,10 +267,15 @@ def _walk_chunk(q, s, chunk, off, out_q, out_s, sc) -> torch.Tensor:
     q3 = _gather(q, qlo, hs, fwd, Hb)
     s3 = _gather(s, slo, ws, fwd, Wb)
     if isinstance(sc, AffineScoring):
-        oq, os_, scores = batch.preds_walk_batch_affine(
-            q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
-    else:
+        args = (q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
+        oq, os_, scores = (
+            batch.preds_walk_batch_affine(*args) if mesh is None else
+            dist_batch.preds_walk_batch_affine_sharded(*args, mesh))
+    elif mesh is None:
         oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
+    else:
+        oq, os_, scores = dist_batch.preds_walk_batch_sharded(q3, s3, hs, ws,
+                                                              sc, mesh)
     # copy only the walked positions: a stripe's unwalked slots belong to
     # no one, but the buffer is shared
     pos = (off + qlo + slo)[:, None] + torch.arange(Hb + Wb, device=dev)
@@ -250,12 +286,14 @@ def _walk_chunk(q, s, chunk, off, out_q, out_s, sc) -> torch.Tensor:
     return scores
 
 
-def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None) -> int:
+def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
+               sp_min_width: int = 0) -> int:
     """Level-synchronous global construction of q against s (both
     non-empty), whose cell (i, j) lands at position off + i + j + 1 of
     out_q / out_s. Returns the global score. With `ckpt`
     (:class:`_HbCheckpoint`) it starts from the saved state, if any, and
-    saves after every level and every terminal chunk."""
+    saves after every level and every terminal chunk; with `mesh`, over
+    its devices (see the module docstring)."""
     m, n = q.shape[0], s.shape[0]
     root = (0, m, 0, n, False, False)
     root_score = None
@@ -295,7 +333,7 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None) -> int:
 
     while active:
         parts, active = active, []
-        ks, cross, scores = _split(q, s, parts, sc)
+        ks, cross, scores = _split(q, s, parts, sc, mesh, sp_min_width)
         rows = torch.stack([ks, cross.to(ks.dtype), scores]).T.tolist()
         for (qlo, qhi, slo, shi, sg, eg), (k, c, score) in zip(parts, rows):
             if root_score is None:
@@ -308,7 +346,7 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None) -> int:
     for ci, chunk in enumerate(_terminal_chunks(terminals)):
         if ci < term_done:
             continue
-        scores = _walk_chunk(q, s, chunk, off, out_q, out_s, sc)
+        scores = _walk_chunk(q, s, chunk, off, out_q, out_s, sc, mesh)
         if root in chunk:
             root_score = int(scores[chunk.index(root)])
         term_done = ci + 1
@@ -343,9 +381,14 @@ def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
 
 
 def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
-                     device="cuda", mesh=None,
-                     checkpoint_path=None) -> Alignment:
-    """Linear-memory alignment construction on `device`.
+                     device="cuda", mesh=None, checkpoint_path=None,
+                     sp_min_width: int | None = None) -> Alignment:
+    """Linear-memory alignment construction on `device`, or over the
+    devices of `mesh` (a ``dist.mesh.Mesh``; its first device then holds
+    the sequences and outputs, and `device` is not read), bit-identical
+    to the single-device construction. ``sp_min_width``: the narrowest
+    half that a level of at most 4 parts runs over the whole mesh (default
+    2,048 columns a device of the mesh).
 
     ``checkpoint_path``: a durable npz state, updated after every
     completed unit of work; a killed run called again with the same
@@ -355,13 +398,14 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
     (1: the forward end found, 2: the reverse start found) and the
     construction of their rectangle under ``checkpoint_path + ".rect"``.
     The output buffers live on `device`; a save copies them to the host.
+    A checkpoint of a run over a mesh resumes with or without one.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device construction is not ported yet "
-            "(ROADMAP queue 1, item 12)")
     mode = Mode.parse(mode)
     sc = check_scoring(scoring)
+    if mesh is not None:
+        device = check_mesh(mesh).device_list()[0]
+        if sp_min_width is None:
+            sp_min_width = 2048 * mesh.size
     q = as_tensor(query, device)
     s = as_tensor(subject, device)
     m, n = q.shape[0], s.shape[0]
@@ -382,7 +426,8 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
             path = (checkpoint_path if mode is Mode.GLOBAL
                     else checkpoint_path + ".rect")
             ckpt = _HbCheckpoint(path, _ckpt_key(qr, sr, Mode.GLOBAL, sc))
-        return _hb_global(qr, sr, off, out_q, out_s, sc, ckpt)
+        return _hb_global(qr, sr, off, out_q, out_s, sc, ckpt, mesh,
+                          sp_min_width)
 
     if mode is Mode.GLOBAL:
         return result(rect(q, s, 0), (0, 0))
@@ -401,7 +446,7 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
             outer.save(**{k: np.int64(v) for k, v in zip(_STAGE_KEYS, values)})
 
     if stage < 1:
-        outs = wavefront.score(q, s, mode, sc)
+        outs = _sweep(q, s, mode, sc, mesh)
         score, ei, ej = linmem.extract_end(outs, m, n, mode).tolist()
         save_stage(1, score, ei, ej, 0, 0, 0)
     if ei < 0 or ej < 0 or (mode is Mode.LOCAL and score <= 0):
@@ -412,10 +457,10 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
         qr = q[: ei + 1].flip(0)
         sr = s[: ej + 1].flip(0)
         if mode is Mode.LOCAL:
-            rscore, ri, rj = wavefront.score(qr, sr, mode, sc)["best"].tolist()
+            rscore, ri, rj = _sweep(qr, sr, mode, sc, mesh)["best"].tolist()
         else:
             # GLOBAL inits pin the reverse start to the forward end cell
-            outs = wavefront.score(qr, sr, Mode.GLOBAL, sc)
+            outs = _sweep(qr, sr, Mode.GLOBAL, sc, mesh)
             rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
         save_stage(2, score, ei, ej, rscore, ri, rj)
     si, sj = ei - ri, ej - rj

@@ -28,12 +28,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4, K5,
-# K5p, K5L, K6, K7 score-only, K7 with codes, K8 and K8 affine.
+# K5p, K5L, K6, K7 score-only, K7 with codes (2-bit linear or 4-bit
+# affine), K8, K8 affine, K10 and K10 affine (one launch a rank a band).
 launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
             "lastcols": 0, "wavefront_affine_score": 0,
             "wavefront_affine_preds": 0, "lastcols_affine": 0,
             "walk_affine": 0, "swarm_score": 0, "swarm_preds": 0,
-            "band": 0, "band_affine": 0}
+            "band": 0, "band_affine": 0, "band_collective": 0,
+            "band_collective_affine": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
@@ -52,11 +54,12 @@ SIGNATURES = {
                                _P),
     "anyseq_swarm": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
-    "anyseq_band": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P,
-                    _P, _P, _P, _P, _P),
+    "anyseq_band": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                    _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "anyseq_band_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                           _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P),
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "anyseq_enable_peer": (_I, _I),
 }
 
 

@@ -1,6 +1,9 @@
 """K8 and K8 affine wrappers: one band of rows from an explicit boundary
 (``csrc/band.cu``, ``csrc/band_affine.cu``), and the chained sweep that
-scores a query of any length one band after another.
+scores a query of any length one band after another; K10 and K10 affine,
+the same band over one rank's stripe of columns with its boundary columns
+handed across ranks through a :class:`Halo` (the collective sweep of
+``dist/collective.py``).
 
 The counterpart of the JAX package's ``kernels/band.py`` chained path
 (``_score_band_padded`` in boundary mode, ``score_pair_chained``). A
@@ -13,7 +16,9 @@ score-only sweep taller than :data:`M_MAX` rows here.
 :func:`score_band` returns the output dict of ``linmem.score_band`` (or
 ``affine.score_band_affine``); on a CPU tensor it runs that plain version
 (:data:`plain`, :data:`plain_affine`), on a CUDA tensor it launches the
-kernel.
+kernel. :func:`score_band_collective` likewise runs
+:func:`plain_collective` / :func:`plain_collective_affine` or launches
+K10.
 """
 from __future__ import annotations
 
@@ -40,6 +45,17 @@ M_MAX = 512 * 1024
 M_BAND = 256 * 1024
 
 
+def _check_band(q_band, s, rows, cols) -> None:
+    check_pair(q_band, s)
+    h, n = int(q_band.shape[0]), int(s.shape[0])
+    for t, size in [(c, h) for c in cols] + [(r, n) for r in rows]:
+        if (t is None or t.dtype != torch.int32 or t.shape != (size,)
+                or t.device != s.device or not t.is_contiguous()):
+            raise ValueError("band boundaries must be contiguous int32 "
+                             "tensors of the band's height and width, on "
+                             "the sequences' device")
+
+
 def score_band(q_band, s, row_in, corner: int, col_in, mode: Mode,
                sc: LinearScoring | AffineScoring, rowf_in=None,
                cole_in=None):
@@ -48,17 +64,9 @@ def score_band(q_band, s, row_in, corner: int, col_in, mode: Mode,
     left column ``col_in`` (+ ``cole_in``, affine); see
     ``linmem.score_band`` and ``affine.score_band_affine``."""
     mode = Mode.parse(mode)
-    check_pair(q_band, s)
     is_affine = isinstance(sc, AffineScoring)
-    h, n = int(q_band.shape[0]), int(s.shape[0])
-    cols = (col_in, cole_in) if is_affine else (col_in,)
-    rows = (row_in, rowf_in) if is_affine else (row_in,)
-    for t, size in [(c, h) for c in cols] + [(r, n) for r in rows]:
-        if (t is None or t.dtype != torch.int32 or t.shape != (size,)
-                or t.device != s.device or not t.is_contiguous()):
-            raise ValueError("band boundaries must be contiguous int32 "
-                             "tensors of the band's height and width, on "
-                             "the sequences' device")
+    _check_band(q_band, s, (row_in, rowf_in) if is_affine else (row_in,),
+                (col_in, cole_in) if is_affine else (col_in,))
     if s.device.type == "cpu":
         if is_affine:
             return plain_affine(q_band, s, row_in, rowf_in, corner, col_in,
@@ -77,57 +85,17 @@ def launch(lib, q, s, row_in, corner, col_in, mode: Mode, sc: LinearScoring,
            grid: int = 0):
     """Launch K8 of `lib` on the band, wherever it lies; `grid` > 0 caps
     the CTAs."""
-    h, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
-    i32 = {"dtype": torch.int32, "device": q.device}
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(strips, **i32)
-    bcols = torch.empty(max(strips - 1, 1) * h, **i32)
-    row_out = torch.empty(n, **i32)
-    last_col = torch.empty(h, **i32)
-    bests = torch.empty((strips, 3), **i32)
-    err = lib.anyseq_band(
-        q.data_ptr(), h, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
-        MODE_CODE[mode], row_in.data_ptr(), int(corner),
-        col_in.data_ptr(), grid, ticket.data_ptr(), bcols.data_ptr(),
-        flags.data_ptr(), row_out.data_ptr(), last_col.data_ptr(),
-        bests.data_ptr(), _build.stream(q.device),
-    )
-    _build.check(err, "band")
-    _build.launches["band"] += 1
-    return {"last_row": row_out, "last_col": last_col,
-            "best": reduce_best(bests)}
+    return _launch("band", lib, q, s, row_in, corner, col_in, mode, sc, None,
+                   None, 0, 0, 1, grid)
 
 
 def launch_affine(lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
                   mode: Mode, sc: AffineScoring, grid: int = 0):
     """Launch K8 affine of `lib` on the band, wherever it lies; `grid` > 0
     caps the CTAs."""
-    h, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
-    i32 = {"dtype": torch.int32, "device": q.device}
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(strips, **i32)
-    bcols = torch.empty(max(strips - 1, 1) * h, **i32)
-    bcols_e = torch.empty(max(strips - 1, 1) * h, **i32)
-    row_out = torch.empty(n, **i32)
-    rowf_out = torch.empty(n, **i32)
-    last_col = torch.empty(h, **i32)
-    last_col_e = torch.empty(h, **i32)
-    bests = torch.empty((strips, 3), **i32)
-    err = lib.anyseq_band_affine(
-        q.data_ptr(), h, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
-        sc.gap_extend, MODE_CODE[mode], row_in.data_ptr(),
-        rowf_in.data_ptr(), int(corner), col_in.data_ptr(),
-        cole_in.data_ptr(), grid, ticket.data_ptr(), bcols.data_ptr(),
-        bcols_e.data_ptr(), flags.data_ptr(), row_out.data_ptr(),
-        rowf_out.data_ptr(), last_col.data_ptr(), last_col_e.data_ptr(),
-        bests.data_ptr(), _build.stream(q.device),
-    )
-    _build.check(err, "band_affine")
-    _build.launches["band_affine"] += 1
-    return {"last_row": row_out, "last_row_f": rowf_out, "last_col": last_col,
-            "last_col_e": last_col_e, "best": reduce_best(bests)}
+    return _launch_affine("band_affine", lib, q, s, row_in, rowf_in, corner,
+                          col_in, cole_in, mode, sc, None, None, 0, 0, 1,
+                          grid)
 
 
 def score_pair_chained(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
@@ -179,3 +147,210 @@ def score_pair_chained(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
     if is_affine:
         res["last_col_e"] = torch.cat(last_cols_e)
     return res
+
+
+class Halo:
+    """The column left of a rank's stripe, H[0..m)[j0 - 1] (and E, affine),
+    on that rank's device, which the rank to its left writes band by band
+    as it sweeps: ``flags[b]`` counts the rows of band b published so far.
+    ``sys``: the producer runs on another card (it writes through peer
+    access, and both sides fence system-wide)."""
+
+    def __init__(self, m: int, bands: int, affine: bool, device,
+                 producer_device):
+        i32 = {"dtype": torch.int32, "device": device}
+        self.h = torch.zeros(m, **i32)
+        self.e = torch.zeros(m, **i32) if affine else None
+        self.flags = torch.zeros(bands, **i32)
+        self.sys = torch.device(device) != torch.device(producer_device)
+
+    def tensors(self):
+        return [t for t in (self.h, self.e, self.flags) if t is not None]
+
+
+def _ptr(t, offset: int = 0):
+    """The address of int32 element `offset` of t, None for no tensor."""
+    return None if t is None else t.data_ptr() + 4 * offset
+
+
+def _publish(halo_out, outs, b: int, i0: int, h: int) -> None:
+    """The plain versions' hand-off: the band's last columns into rows
+    [i0, i0 + h) of the right rank's halo, and its flag raised."""
+    if halo_out is None:
+        return
+    halo_out.h[i0:i0 + h] = outs["last_col"]
+    if halo_out.e is not None:
+        halo_out.e[i0:i0 + h] = outs["last_col_e"]
+    halo_out.flags[b] = h
+
+
+def plain_collective(q, s, row_in, corner, col_in, mode: Mode,
+                     sc: LinearScoring, halo_in, halo_out, b: int, i0: int):
+    """The plain version of K10: band b (rows [i0, i0 + h)) of one rank's
+    stripe, as ``linmem.score_band``, with the left column (and, for
+    b > 0, the corner: row i0 - 1 of the same column) taken from
+    `halo_in` where given, and the last column written to `halo_out`."""
+    h = int(q.shape[0])
+    if halo_in is not None:
+        col_in = halo_in.h[i0:i0 + h]
+        if b > 0:
+            corner = halo_in.h[i0 - 1]
+    outs = plain(q, s, row_in, corner, col_in, mode, sc)
+    _publish(halo_out, outs, b, i0, h)
+    return outs
+
+
+def plain_collective_affine(q, s, row_in, rowf_in, corner, col_in, cole_in,
+                            mode: Mode, sc: AffineScoring, halo_in, halo_out,
+                            b: int, i0: int):
+    """The plain version of K10 affine: as :func:`plain_collective`, with
+    the F row and the E column of ``affine.score_band_affine``."""
+    h = int(q.shape[0])
+    if halo_in is not None:
+        col_in, cole_in = halo_in.h[i0:i0 + h], halo_in.e[i0:i0 + h]
+        if b > 0:
+            corner = halo_in.h[i0 - 1]
+    outs = plain_affine(q, s, row_in, rowf_in, corner, col_in, cole_in, mode,
+                        sc)
+    _publish(halo_out, outs, b, i0, h)
+    return outs
+
+
+def score_band_collective(q_band, s, row_in, corner, col_in, mode: Mode,
+                          sc: LinearScoring | AffineScoring, halo_in,
+                          halo_out, b: int, i0: int, rowf_in=None,
+                          cole_in=None, share: int = 1):
+    """Band b (rows [i0, i0 + h)) of one rank's stripe of the collective
+    sweep: :func:`score_band`, whose left column (+ E column) and, for
+    b > 0, corner come from `halo_in` (None for the first rank, which
+    takes `corner` and `col_in`), and whose last columns also go to
+    `halo_out` (None for the last rank). On a CUDA tensor it launches K10
+    on the current device and stream, which must not wait on a launch
+    enqueued after it; `share` launches of the sweep run on this card at
+    once and split its CTAs."""
+    mode = Mode.parse(mode)
+    is_affine = isinstance(sc, AffineScoring)
+    cols = () if halo_in is not None else (
+        (col_in, cole_in) if is_affine else (col_in,))
+    _check_band(q_band, s, (row_in, rowf_in) if is_affine else (row_in,),
+                cols)
+    if s.device.type == "cpu":
+        if is_affine:
+            return plain_collective_affine(q_band, s, row_in, rowf_in, corner,
+                                           col_in, cole_in, mode, sc, halo_in,
+                                           halo_out, b, i0)
+        return plain_collective(q_band, s, row_in, corner, col_in, mode, sc,
+                                halo_in, halo_out, b, i0)
+    if s.device.type != "cuda":
+        raise ValueError(f"unsupported device {s.device}")
+    if is_affine:
+        return launch_collective_affine(
+            _build.library(), q_band, s, row_in, rowf_in, corner, col_in,
+            cole_in, mode, sc, halo_in, halo_out, b, i0, share=share)
+    return launch_collective(_build.library(), q_band, s, row_in, corner,
+                             col_in, mode, sc, halo_in, halo_out, b, i0,
+                             share=share)
+
+
+def _halo_args(halo_in, halo_out, b: int, i0: int, affine: bool):
+    """The halo pointers of a K10 launch, in the C entry's order: corner
+    pointer, inputs (H, [E,] flag), outputs (H, [E,] flag), sys_in,
+    sys_out."""
+    def side(halo):
+        if halo is None:
+            return (None,) * (3 if affine else 2)
+        cols = (halo.h, halo.e) if affine else (halo.h,)
+        return tuple(_ptr(c, i0) for c in cols) + (_ptr(halo.flags, b),)
+
+    corner = _ptr(halo_in.h, i0 - 1) if halo_in is not None and b > 0 else None
+    return (corner, side(halo_in), side(halo_out),
+            int(getattr(halo_in, "sys", False)),
+            int(getattr(halo_out, "sys", False)))
+
+
+def launch_collective(lib, q, s, row_in, corner, col_in, mode: Mode,
+                      sc: LinearScoring, halo_in, halo_out, b: int, i0: int,
+                      share: int = 1, grid: int = 0):
+    """Launch K10 of `lib` on band b of one rank's stripe (the arguments
+    of :func:`plain_collective`), wherever it lies."""
+    return _launch("band_collective", lib, q, s, row_in, corner, col_in,
+                   mode, sc, halo_in, halo_out, b, i0, share, grid)
+
+
+def launch_collective_affine(lib, q, s, row_in, rowf_in, corner, col_in,
+                             cole_in, mode: Mode, sc: AffineScoring, halo_in,
+                             halo_out, b: int, i0: int, share: int = 1,
+                             grid: int = 0):
+    """Launch K10 affine of `lib` on band b of one rank's stripe (the
+    arguments of :func:`plain_collective_affine`), wherever it lies."""
+    return _launch_affine("band_collective_affine", lib, q, s, row_in,
+                          rowf_in, corner, col_in, cole_in, mode, sc, halo_in,
+                          halo_out, b, i0, share, grid)
+
+
+def _launch(name, lib, q, s, row_in, corner, col_in, mode: Mode,
+            sc: LinearScoring, halo_in, halo_out, b: int, i0: int, share: int,
+            grid: int):
+    """K8 (no halos) or K10: the C entry anyseq_band, counted as `name`."""
+    h, n = int(q.shape[0]), int(s.shape[0])
+    strips = -(-n // STRIP)
+    i32 = {"dtype": torch.int32, "device": q.device}
+    ticket = torch.zeros(1, **i32)
+    flags = torch.zeros(strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * h, **i32)
+    row_out = torch.empty(n, **i32)
+    last_col = torch.empty(h, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    from_halo = halo_in is not None
+    corner_ptr, inp, out, sys_in, sys_out = _halo_args(halo_in, halo_out, b,
+                                                       i0, False)
+    err = lib.anyseq_band(
+        q.data_ptr(), h, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
+        MODE_CODE[mode], row_in.data_ptr(),
+        0 if from_halo and b > 0 else int(corner), corner_ptr,
+        None if from_halo else col_in.data_ptr(),
+        *inp, *out, sys_in, sys_out, share, grid, ticket.data_ptr(),
+        bcols.data_ptr(), flags.data_ptr(), row_out.data_ptr(),
+        last_col.data_ptr(), bests.data_ptr(), _build.stream(q.device),
+    )
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return {"last_row": row_out, "last_col": last_col,
+            "best": reduce_best(bests)}
+
+
+def _launch_affine(name, lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
+                   mode: Mode, sc: AffineScoring, halo_in, halo_out, b: int,
+                   i0: int, share: int, grid: int):
+    """K8 affine (no halos) or K10 affine: the C entry anyseq_band_affine,
+    counted as `name`."""
+    h, n = int(q.shape[0]), int(s.shape[0])
+    strips = -(-n // STRIP)
+    i32 = {"dtype": torch.int32, "device": q.device}
+    ticket = torch.zeros(1, **i32)
+    flags = torch.zeros(strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * h, **i32)
+    bcols_e = torch.empty(max(strips - 1, 1) * h, **i32)
+    row_out = torch.empty(n, **i32)
+    rowf_out = torch.empty(n, **i32)
+    last_col = torch.empty(h, **i32)
+    last_col_e = torch.empty(h, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    from_halo = halo_in is not None
+    corner_ptr, inp, out, sys_in, sys_out = _halo_args(halo_in, halo_out, b,
+                                                       i0, True)
+    err = lib.anyseq_band_affine(
+        q.data_ptr(), h, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
+        sc.gap_extend, MODE_CODE[mode], row_in.data_ptr(),
+        rowf_in.data_ptr(), 0 if from_halo and b > 0 else int(corner),
+        corner_ptr, None if from_halo else col_in.data_ptr(),
+        None if from_halo else cole_in.data_ptr(), *inp, *out, sys_in,
+        sys_out, share, grid, ticket.data_ptr(), bcols.data_ptr(),
+        bcols_e.data_ptr(), flags.data_ptr(), row_out.data_ptr(),
+        rowf_out.data_ptr(), last_col.data_ptr(), last_col_e.data_ptr(),
+        bests.data_ptr(), _build.stream(q.device),
+    )
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return {"last_row": row_out, "last_row_f": rowf_out, "last_col": last_col,
+            "last_col_e": last_col_e, "best": reduce_best(bests)}

@@ -34,19 +34,28 @@ __host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
 // Hand-off between CTAs. The producer writes its values, then raises a
-// progress flag; __threadfence() orders the two for every other CTA.
-__device__ __forceinline__ void publish(int* flag, int value) {
-  __threadfence();
+// progress flag; __threadfence() orders the two for every other CTA of
+// the card. `sys`: producer and consumer run on different cards (the
+// collective sweep's halo, read through peer access), and the fences are
+// system-wide.
+__device__ __forceinline__ void publish(int* flag, int value, bool sys = false) {
+  if (sys)
+    __threadfence_system();
+  else
+    __threadfence();
   *(volatile int*)flag = value;
 }
 
 // The consumer spins until the flag reaches `value`; its later reads of
-// the producer's values must bypass L1 (load_cg), which is not coherent.
-// A producer never lags by more than milliseconds, so a wait of 2^34
-// cycles (seconds) means a broken schedule: trap, and the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void wait_for(const int* flag, int value) {
+// the producer's values must bypass L1 (load_cg), which is not coherent,
+// or (sys) every cache of the card (load_sys). A producer on the card
+// never lags by more than a band's sweep (seconds at genome length), so
+// a wait of 2^34 cycles (~9 s) means a broken schedule: trap, and the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void wait_for(const int* flag, int value,
+                                         bool sys = false) {
 #ifdef ANYSEQ_HOST_EMU
+  (void)sys;
   emu_check_published(*(const volatile int*)flag, value);
 #else
   const long long start = clock64();
@@ -54,19 +63,33 @@ __device__ __forceinline__ void wait_for(const int* flag, int value) {
     __nanosleep(32);
     if (clock64() - start > (1ll << 34)) __trap();
   }
-  __threadfence();
+  if (sys)
+    __threadfence_system();
+  else
+    __threadfence();
 #endif
 }
 
 __device__ __forceinline__ int load_cg(const int* p) { return __ldcg(p); }
+__device__ __forceinline__ int load_sys(const int* p) { return *(const volatile int*)p; }
 
-// CTAs of `kernel` that fit on the card at once.
+// CTAs of `kernel` that fit on the current card at once.
 inline int resident_ctas(const void* kernel, int threads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   return per_sm * sms > 0 ? per_sm * sms : 1;
+}
+
+// The grid of a strip sweep: one CTA a strip, at most what fits on the
+// card divided among the `share` launches that must be resident together
+// (the collective sweep's ranks on one card), at most max_grid (> 0).
+inline int strip_grid(const void* kernel, int threads, int strips, int share,
+                      int max_grid) {
+  int grid = resident_ctas(kernel, threads) / (share > 1 ? share : 1);
+  grid = imin(strips, grid > 0 ? grid : 1);
+  return max_grid > 0 ? imin(grid, max_grid) : grid;
 }
 
 }  // namespace anyseq

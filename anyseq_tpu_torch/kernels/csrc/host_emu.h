@@ -6,7 +6,9 @@
 // variables become function statics, which is right while one CTA runs
 // at a time. Because CTAs run in order, a strip's left neighbour has
 // always finished before the strip starts: wait_for() checks that the
-// flag it would spin on is already raised, and aborts if it is not.
+// flag it would spin on is already raised, and aborts if it is not. The
+// collective sweep's ranks (K10) are launched in rank order, so a rank's
+// left neighbour has likewise finished its band before the rank starts.
 #pragma once
 
 #include <atomic>
@@ -37,6 +39,7 @@ enum { cudaDevAttrMultiProcessorCount = 16 };
 
 inline void __syncthreads() { emu_cta_barrier->arrive_and_wait(); }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __threadfence_system() { __threadfence(); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline int __ldcg(const int* p) { return *(const volatile int*)p; }
 
@@ -54,6 +57,9 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*, in
   return 0;
 }
 inline int cudaGetLastError() { return 0; }
+enum { cudaErrorPeerAccessAlreadyEnabled = 704 };
+inline int cudaSetDevice(int) { return 0; }
+inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
 
 template <class F>
 void emu_launch(int grid, int block, F body) {

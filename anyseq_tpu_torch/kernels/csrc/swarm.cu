@@ -12,13 +12,18 @@
 // gives last_rows[b][j] = H[m-1][j] (j < n), last_cols[b][i] = H[i][n-1]
 // (i < m) and best[b] = GLOBAL (H[m-1][n-1], m-1, n-1), SEMIGLOBAL (max_i
 // H[i][n-1], 0, 0), LOCAL (score, i, j) of the first maximum in row-major
-// order ((score, 0, 0) without need_pos); with PREDS (linear only) the
-// 2-bit codes of cell (i, j) in bits 2*(j % 16) of word
-// preds[b][i][j / 16], in the walk's (K3's) layout. Outputs past a
-// problem's lengths are never written (the wrapper zero-fills them). An
-// affine GLOBAL problem with sgaps[b] starts inside a paid gap run: its
-// top row drops gap_open, its corner and left column are NEG. E at j = 0
-// is max(H[i][-1] + go + ge, NEG + ge), as in the TPU kernel.
+// order ((score, 0, 0) without need_pos); with PREDS the codes of cell
+// (i, j): linear, 2 bits in bits 2*(j % 16) of word preds[b][i][j / 16],
+// in the walk's (K3's) layout; affine, 4 bits PH | PE << 2 | PF << 3 in
+// bits 4*(j % 8) of word preds[b][i][j / 8], the layout of
+// engine/affine.py pack_codes4 and of the TPU kernel (swarm.py:201-213).
+// Outputs past a problem's lengths are never written (the wrapper
+// zero-fills them). An affine GLOBAL problem with sgaps[b] starts inside a
+// paid gap run: its top row drops gap_open, its corner and left column are
+// NEG. E[i][-1] is NEG + go - ge, so that E[i][0] = max(H[i][-1] + go + ge,
+// NEG + go) is the closed form of engine/affine.py affine_row, and PE at
+// j = 0 is the plain version's also under sgaps (the TPU kernel's NEG + ge
+// there never wins H, but gives another PE where go or ge is 0).
 //
 // Design: each thread sweeps its own (m, n) row-major and stops at its own
 // lengths, so no masks run inside the DP; divergence only idles lanes.
@@ -27,8 +32,9 @@
 // j * B + b, so the 32 lanes of a warp touch 32 consecutive words at each
 // j. A row runs in blocks of 16 columns: the subject is read 16 bytes at a
 // time (rows padded to a multiple of 16), the next block's row values are
-// loaded while the current block computes, one code word is written per
-// block, and only a row's last, partial block tests j < n per cell.
+// loaded while the current block computes, one code word (two affine) is
+// written per block, and only a row's last, partial block tests j < n per
+// cell.
 //
 // What bounds it on an H100: one dependent chain of int32 max/add a cell
 // a thread (about 6 operations linear, 11 affine); with 10^4 problems of
@@ -100,14 +106,15 @@ struct State {
 
 // Cells (i, j0 .. j0 + 15) of one problem (only those below n unless
 // FULL, so that a full block runs without a branch a cell): H and F go
-// to the row buffers; returns the block's 2-bit code word.
+// to the row buffers; returns the block's codes, 2 bits a cell (linear)
+// or 4 (affine) from bit 0 up.
 template <bool AFFINE, int MODE, bool PREDS, bool FULL>
-__device__ __forceinline__ uint32_t sweep_block(const Block& cur, int i,
+__device__ __forceinline__ uint64_t sweep_block(const Block& cur, int i,
                                                 int j0, int n, int qi,
                                                 int* R, int* F, size_t step,
                                                 const Params& p, State& st) {
   const int goe = p.go + p.ge;
-  uint32_t word = 0;
+  uint64_t word = 0;
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     const int j = j0 + k;
@@ -123,6 +130,14 @@ __device__ __forceinline__ uint32_t sweep_block(const Block& cur, int i,
         if (MODE == MODE_LOCAL) t = imax(t, 0);
         h = imax(t, st.e);
         F[j * step] = f;
+        if (PREDS) {
+          // PH by diag > E > F as selects, PE / PF 1 where the run extends
+          int ph = h == f ? PRED_GAP_S : PRED_NONE;
+          ph = h == st.e ? PRED_GAP_Q : ph;
+          ph = h == dsub ? PRED_NO_GAP : ph;
+          const int code = ph | (st.e != st.left + goe) << 2 | (f != up + goe) << 3;
+          word |= (uint64_t)code << (4 * k);
+        }
       } else {
         h = imax(dsub, imax(up, st.left) + p.gap);
         if (MODE == MODE_LOCAL) h = imax(h, 0);
@@ -132,7 +147,7 @@ __device__ __forceinline__ uint32_t sweep_block(const Block& cur, int i,
           int code = h == up + p.gap ? PRED_GAP_S : PRED_NONE;
           code = h == st.left + p.gap ? PRED_GAP_Q : code;
           code = h == dsub ? PRED_NO_GAP : code;
-          word |= (uint32_t)code << (2 * k);
+          word |= (uint64_t)code << (2 * k);
         }
       }
       R[j * step] = h;
@@ -146,6 +161,19 @@ __device__ __forceinline__ uint32_t sweep_block(const Block& cur, int i,
     }
   }
   return word;
+}
+
+// The codes of the block at column j0 into its row of words: one word
+// (linear), or two (affine), the second only where it holds a cell.
+template <bool AFFINE>
+__device__ __forceinline__ void store_codes(uint32_t* row, int j0, int n,
+                                            uint64_t word) {
+  if (!AFFINE) {
+    row[j0 / 16] = (uint32_t)word;
+    return;
+  }
+  row[j0 / 8] = (uint32_t)word;
+  if (j0 + 8 < n) row[j0 / 8 + 1] = (uint32_t)(word >> 32);
 }
 
 template <bool AFFINE, int MODE, bool PREDS>
@@ -186,7 +214,7 @@ __global__ void __launch_bounds__(THREADS)
     const int qi = Q[i];
     st.left = col_bound<AFFINE, MODE>(i, sg, p);
     st.diag = col_bound<AFFINE, MODE>(i - 1, sg, p);
-    st.e = NEG;
+    st.e = AFFINE ? NEG + p.go - p.ge : NEG;
     // The next block's row values, F's and subject bytes are loaded while
     // this block computes: they do not depend on its stores.
     Block next = n >= 16 ? load_block<AFFINE, true>(R, F, S, step, 0, n)
@@ -198,14 +226,14 @@ __global__ void __launch_bounds__(THREADS)
         next = load_block<AFFINE, true>(R, F, S, step, j0 + 16, n);
       else if (j0 + 16 < n)
         next = load_block<AFFINE, false>(R, F, S, step, j0 + 16, n);
-      const uint32_t word = sweep_block<AFFINE, MODE, PREDS, true>(
+      const uint64_t word = sweep_block<AFFINE, MODE, PREDS, true>(
           cur, i, j0, n, qi, R, F, step, p, st);
-      if (PREDS) P[(size_t)i * pred_words + j0 / 16] = word;
+      if (PREDS) store_codes<AFFINE>(P + (size_t)i * pred_words, j0, n, word);
     }
     if (j0 < n) {
-      const uint32_t word = sweep_block<AFFINE, MODE, PREDS, false>(
+      const uint64_t word = sweep_block<AFFINE, MODE, PREDS, false>(
           next, i, j0, n, qi, R, F, step, p, st);
-      if (PREDS) P[(size_t)i * pred_words + j0 / 16] = word;
+      if (PREDS) store_codes<AFFINE>(P + (size_t)i * pred_words, j0, n, word);
     }
     last_cols[(size_t)b * lc_stride + i] = st.left;  // H[i][n-1]
     colmax = imax(colmax, st.left);
@@ -257,7 +285,7 @@ void launch_mode(int mode, A... args) {
 // Scratch: rowbuf (max ns x B ints), frow (the same, affine only).
 // Outputs (zero-filled by the caller): last_rows (B, lr_stride), last_cols
 // (B, lc_stride), best (B, 3), preds (B, pred_rows, pred_words) words with
-// emit_preds (linear only).
+// emit_preds (16 codes a word linear, 8 affine).
 extern "C" int anyseq_swarm(const void* q, int q_stride, const void* s,
                             int s_stride, const void* ms, const void* ns,
                             const void* sgaps, int B, int match, int mismatch,
@@ -268,7 +296,6 @@ extern "C" int anyseq_swarm(const void* q, int q_stride, const void* s,
                             void* best, void* preds, int pred_rows,
                             int pred_words, void* stream) {
   if (B <= 0) return 0;
-  if (affine && emit_preds) return 1;  // cudaErrorInvalidValue: not ported
   const Params p{match, mismatch, gap, gap_open, gap_extend, need_pos != 0};
   const int grid = (B + THREADS - 1) / THREADS;
   auto args = [&](auto run) {
@@ -277,7 +304,9 @@ extern "C" int anyseq_swarm(const void* q, int q_stride, const void* s,
         (int*)rowbuf, (int*)frow, (int*)last_rows, lr_stride, (int*)last_cols,
         lc_stride, (int*)best, (uint32_t*)preds, pred_rows, pred_words);
   };
-  if (affine)
+  if (affine && emit_preds)
+    args([&](auto... a) { launch_mode<true, true>(mode, a...); });
+  else if (affine)
     args([&](auto... a) { launch_mode<true, false>(mode, a...); });
   else if (emit_preds)
     args([&](auto... a) { launch_mode<false, true>(mode, a...); });

@@ -20,6 +20,12 @@
 // column. Thread t reads its corner H[i0-1][c0-1] from the top row, which
 // the launch only reads (the bottom row goes to another buffer), so a CTA
 // that finishes a strip never overwrites a corner that a later strip reads.
+//
+// The collective sweep (K10, band.cu) is a band over one rank's stripe of
+// columns: its first strip takes its left column from a halo that the
+// rank to its left publishes as it goes, and its last strip publishes its
+// right column into the halo of the rank to its right, with the same
+// flags as between strips (`left_sys` / `right_sys`: across cards).
 #pragma once
 
 #include "common.cuh"
@@ -56,6 +62,9 @@ struct Strip {
   const int* top = nullptr;     // top row H[i0-1][0..n)
   int corner = 0;               // H[i0-1][-1]
   const int* left_in = nullptr; // the first strip's left column H[i0+r][-1]
+  const int* corner_ptr = nullptr;  // the corner read on the device, or null
+  bool left_sys = false;        // `left` lies on another card's producer
+  bool right_sys = false;       // `right` lies on another card
 };
 
 struct SweepShared {
@@ -78,8 +87,8 @@ __device__ __forceinline__ void stage_chunk(const Strip& S, int gap,
   if (r >= S.m) return;
   int h;
   if (S.left) {
-    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK));
-    h = load_cg(S.left + r);
+    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK), S.left_sys);
+    h = S.left_sys ? load_sys(S.left + r) : load_cg(S.left + r);
   } else {
     h = S.top ? S.left_in[r] : boundary(S.global_init, gap, r);
   }
@@ -110,7 +119,7 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
   }
   // H[i-1][c0-1]
   int diag_in = !S.top       ? boundary(S.global_init, g, c0 - 1)
-                : c0 == 0    ? S.corner
+                : c0 == 0    ? (S.corner_ptr ? load_sys(S.corner_ptr) : S.corner)
                 : c0 <= S.n  ? S.top[c0 - 1]
                              : 0;
   const int lc = S.last_col ? S.n - 1 - c0 : -1;     // which column is n-1
@@ -165,7 +174,8 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
       if (PREDS && c0 < S.n) S.preds[(size_t)i * S.pred_stride + c0 / COLS] = word;
       if (S.right && t == SWEEP_THREADS - 1) {
         S.right[i] = left;
-        if ((i + 1) % CHUNK == 0 || i + 1 == S.m) publish(S.right_flag, i + 1);
+        if ((i + 1) % CHUNK == 0 || i + 1 == S.m)
+          publish(S.right_flag, i + 1, S.right_sys);
       }
     }
     __syncthreads();

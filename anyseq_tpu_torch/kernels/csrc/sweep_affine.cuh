@@ -26,7 +26,8 @@
 //
 // A band (band_affine.cu, K8 affine) starts from an explicit boundary, as
 // in sweep.cuh, with the F row beside the top row and the E column beside
-// the left column, and writes the bottom F row.
+// the left column, and writes the bottom F row; the collective sweep (K10
+// affine) hands the H and E columns across ranks as sweep.cuh says.
 #pragma once
 
 #include "sweep.cuh"
@@ -66,6 +67,9 @@ struct StripAffine {
   const int* left_in = nullptr;   // the first strip's left columns H[i0+r][-1]
   const int* left_in_e = nullptr; // and E[i0+r][-1]
   int* last_row_f = nullptr;      // F[i0+m-1][j] for the strip's columns, or null
+  const int* corner_ptr = nullptr;  // the corner read on the device, or null
+  bool left_sys = false;          // the left columns lie on another card's producer
+  bool right_sys = false;         // the right columns lie on another card
 };
 
 struct SweepAffineShared {
@@ -103,9 +107,9 @@ __device__ __forceinline__ void stage_chunk_affine(const StripAffine& S,
   if (r >= S.m) return;
   int h, e;
   if (S.left_h) {
-    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK));
-    h = load_cg(S.left_h + r);
-    e = load_cg(S.left_e + r);
+    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK), S.left_sys);
+    h = S.left_sys ? load_sys(S.left_h + r) : load_cg(S.left_h + r);
+    e = S.left_sys ? load_sys(S.left_e + r) : load_cg(S.left_e + r);
   } else if (S.top) {
     h = S.left_in[r];
     e = S.left_in_e[r];
@@ -138,7 +142,7 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
   }
   // H[i-1][c0-1]: the corner for the first column, else the top row
   int diag_in = !S.top ? (c0 == 0 ? col_bound(S, sc, -1) : row_bound(S, sc, c0 - 1))
-                : c0 == 0   ? S.corner
+                : c0 == 0   ? (S.corner_ptr ? load_sys(S.corner_ptr) : S.corner)
                 : c0 <= S.n ? S.top[c0 - 1]
                             : 0;
   const int lc = S.last_col ? S.n - 1 - c0 : -1;  // which column is n-1
@@ -209,7 +213,8 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
       if (S.right_h && t == SWEEP_THREADS - 1) {
         S.right_h[i] = h_left;
         S.right_e[i] = e_left;
-        if ((i + 1) % CHUNK == 0 || i + 1 == S.m) publish(S.right_flag, i + 1);
+        if ((i + 1) % CHUNK == 0 || i + 1 == S.m)
+          publish(S.right_flag, i + 1, S.right_sys);
       }
     }
     __syncthreads();

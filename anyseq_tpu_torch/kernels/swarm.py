@@ -3,7 +3,8 @@
 
 :func:`score_pairs_swarm` returns the output dict of
 ``engine.batch.swarm_batch`` (``last_rows``, ``last_cols``, ``best``; with
-``emit_preds`` also ``preds``, the 2-bit codes of ``linmem.pack_codes``).
+``emit_preds`` also ``preds``, the 2-bit codes of ``linmem.pack_codes`` or,
+affine, the 4-bit codes of ``affine.pack_codes4``).
 On a CPU tensor it runs the plain version (:data:`plain`); on a CUDA
 tensor it launches the kernel.
 """
@@ -13,6 +14,7 @@ import torch
 
 from anyseq_tpu_torch.core.types import AffineScoring, Mode
 from anyseq_tpu_torch.engine import batch
+from anyseq_tpu_torch.engine.affine import CODES4_PER_WORD
 from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD
 from anyseq_tpu_torch.kernels import _build
 from anyseq_tpu_torch.kernels._sweep import MODE_CODE
@@ -47,10 +49,6 @@ def score_pairs_swarm(q, s, ms, ns, mode: Mode, sc, sgaps=None,
     ``batch.swarm_batch``."""
     mode = Mode.parse(mode)
     _check(q, s, ms, ns, sgaps)
-    if emit_preds and isinstance(sc, AffineScoring):
-        raise NotImplementedError(
-            "affine codes from the batch sweep are not ported yet "
-            "(ROADMAP queue 2, K7)")
     if q.device.type == "cpu":
         return plain(q, s, ms, ns, mode, sc, sgaps, need_pos, emit_preds)
     if q.device.type != "cuda":
@@ -84,7 +82,7 @@ def launch(lib, q, s, ms, ns, mode: Mode, sc, sgaps=None,
     last_rows = torch.zeros((B, N), **i32)
     last_cols = torch.zeros((B, M), **i32)
     best = torch.empty((B, 3), **i32)
-    nw = -(-N // CODES_PER_WORD)
+    nw = -(-N // (CODES4_PER_WORD if affine else CODES_PER_WORD))
     preds = torch.zeros((B, M, nw), **i32) if emit_preds else None
     err = lib.anyseq_swarm(
         q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0), ms.data_ptr(),

@@ -10,8 +10,12 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    ``anyseq_tpu_torch/kernels/csrc/``.
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
-   times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1.
-3. Four main paths through the public API with ``device="cuda"``, each
+   times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K10 and
+   K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
+   over every card where there are several: two chained bands in 3
+   modes and under start_gap, and a subject that leaves the last rank
+   without columns; K7's affine codes at 4,096 problems.
+3. Five main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
    ``align_score`` 1k global, ``align_full_tb`` 10k local, ``align_score``
@@ -38,15 +42,23 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    ``align_hirschberg`` 100k semiglobal affine killed after its second
    checkpoint save and resumed (held to a clean run), and ``align_score``
    4.6 Mbp global linear, the E. coli-scale pair, with its peak device
-   memory beside what one K1 sweep's boundary columns would take, held to
-   the same pair reversed; and ``align`` 2.2 Mbp global linear, whose
-   first two levels chain K8 bands and whose 4-part level has parts
-   taller than ``M_MAX`` and runs per half, rescored from its strings.
+   memory beside what one K1 sweep's boundary columns would take; and
+   ``align`` 2.2 Mbp global linear, whose first two levels chain K8
+   bands and whose 4-part level has parts taller than ``M_MAX`` and runs
+   per half, rescored from its strings. Mesh (every card where there are
+   two or more, else 2 ranks of cuda:0): ``score_pair_sharded`` 4.6 Mbp
+   global linear and 1 Mbp local affine, ``align(mesh=)`` 1 Mbp
+   semiglobal linear (levels over the whole mesh and data-parallel
+   levels) and 100k semiglobal affine, ``align_scores_batch_sharded`` and
+   ``align_batch(mesh=)`` on the batch path's 10,000 local pairs,
+   ``dryrun_multichip`` and ``score_pairs_collective`` on a 2 x 2 mesh of
+   cuda:0 (3 pairs of 100k, linear and affine), each equal to the
+   single-device result of the same inputs.
 4. Each kernel against its plain version again, on the very inputs the
-   main paths gave it in phase 3 (kept as they passed), bit for bit. K8
-   also at the whole height of a 1 Mbp band (262,144 rows, the subject
-   cut to TALL_COLS columns), and each whole 1 Mbp band (linear and
-   affine) against the same band run as a chain of CUT_ROWS-row bands.
+   main paths gave it in phase 3 (kept as they passed), bit for bit. Each
+   whole 1 Mbp band (linear and affine) against the same band run as a
+   chain of CUT_ROWS-row bands; each rank's first band of the mesh
+   scores alone, and cut to CUT_ROWS rows against the plain version.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
    SMs x 64 int32 lanes x the top SM clock), the card's line, and the
@@ -77,9 +89,10 @@ KERNELS = {
     "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
-             "anyseq_tpu/engine/device_tb.py:405", "linear batch genome"),
+             "anyseq_tpu/engine/device_tb.py:405",
+             "linear batch genome mesh"),
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
-                 "anyseq_tpu/kernels/band.py:1677", "linear genome"),
+                 "anyseq_tpu/kernels/band.py:1677", "linear genome mesh"),
     "wavefront_affine_score": (
         "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine genome"),
@@ -87,17 +100,26 @@ KERNELS = {
         "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine"),
     "lastcols_affine": ("anyseq_tpu_torch/kernels/csrc/lastcols_affine.cu",
-                        "anyseq_tpu/kernels/band.py:1677", "affine genome"),
+                        "anyseq_tpu/kernels/band.py:1677",
+                        "affine genome mesh"),
     "walk_affine": ("anyseq_tpu_torch/kernels/csrc/walk_affine.cu",
-                    "anyseq_tpu/engine/device_tb.py:352", "affine genome"),
+                    "anyseq_tpu/engine/device_tb.py:352",
+                    "affine genome mesh"),
     "swarm_score": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
-                    "anyseq_tpu/kernels/swarm.py:318", "batch"),
+                    "anyseq_tpu/kernels/swarm.py:318", "batch mesh"),
     "swarm_preds": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
-                    "anyseq_tpu/kernels/swarm.py:318", "batch"),
+                    "anyseq_tpu/kernels/swarm.py:318", "batch mesh"),
     "band": ("anyseq_tpu_torch/kernels/csrc/band.cu",
              "anyseq_tpu/kernels/band.py:1443", "genome"),
     "band_affine": ("anyseq_tpu_torch/kernels/csrc/band_affine.cu",
                     "anyseq_tpu/kernels/band.py:1443", "genome"),
+    # T4's collective mode (collective_axis=), reached from
+    # anyseq_tpu/dist/collective.py:213 (_stripe_bands)
+    "band_collective": ("anyseq_tpu_torch/kernels/csrc/band.cu",
+                        "anyseq_tpu/kernels/band.py:1443", "mesh"),
+    "band_collective_affine": (
+        "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
+        "anyseq_tpu/kernels/band.py:1443", "mesh"),
 }
 # int32 operations a cell (or a walk step) of each kernel, counted from
 # its plain recurrence: linear H = max(diag + sub, max(up, left) + gap)
@@ -107,8 +129,8 @@ KERNELS = {
 # three compares and two decrements and forms its address (8).
 OPS = {"wavefront": 6, "wavefront_affine": 11, "lastcols": 6,
        "lastcols_affine": 11, "swarm": 6, "swarm_affine": 11, "band": 6,
-       "band_affine": 11, "codes": 5, "codes4": 9, "walk": 8,
-       "walk_affine": 8}
+       "band_affine": 11, "band_collective": 6, "band_collective_affine": 11,
+       "codes": 5, "codes4": 9, "walk": 8, "walk_affine": 8}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_LANES_PER_SM = 64
 # the affine scoring of the JAX package's bench suite (bench/suite.py)
@@ -123,13 +145,18 @@ RESUME_BAND_ROWS = 65_536
 FILL_BAND_ROWS = 4_096           # ResumableScorer's default band
 BAND_ROWS = 2_000                # phase 2's bands
 BAND_BP = 40_000
+COLL_ROWS = 700                  # phase 2's collective bands
+COLL_BP = 30_000
 CUT_ROWS = 2_048                 # phase 4's cut of a genome band
-TALL_COLS = 2_500                # phase 4's cut of its width
 # a linear construction long enough that its 4-part level has parts
 # taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
 HB_GENOME_BP = 2_200_000
 DEVICE = "cuda"
 GENOME_WALLS: dict = {}          # phase 3's genome calls: wall in s
+MESH_WALLS: dict = {}            # phase 3's mesh calls: wall in s
+MESH_2D_BP = 100_000             # the pairs of the 2 x 2 collective batch
+# single-device results that the mesh path must equal, by name
+SINGLE: dict = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -381,6 +408,8 @@ LAUNCHERS = {
     "swarm": ("swarm", "launch"),
     "band": ("band", "launch"),
     "band_affine": ("band", "launch_affine"),
+    "band_collective": ("band", "launch_collective"),
+    "band_collective_affine": ("band", "launch_collective_affine"),
 }
 
 
@@ -404,6 +433,9 @@ def plain_of(fn: str, args):
         if emit_preds:
             return mod.plain_affine_preds(q, s, mode, sc)
         return mod.plain_affine(q, s, mode, sc, start_gap, emit_col_e)
+    if fn.startswith("band_collective"):
+        return getattr(mod, fn.replace("band_collective", "plain_collective")
+                       )(*args[1:])
     return getattr(mod, "plain_affine" if fn.endswith("_affine")
                    else "plain")(*args[1:])
 
@@ -411,13 +443,15 @@ def plain_of(fn: str, args):
 @contextlib.contextmanager
 def kept_launches(kept: list, call: list):
     """Keep (call[0], launcher, arguments) of every kernel launch made
-    inside the block; `call[0]` names the public call being driven."""
+    inside the block; `call[0]` names the public call being driven. (The
+    keyword arguments, K10's share of the card, are not kept: a launch
+    replayed alone has the card to itself.)"""
     real = {fn: launcher(fn) for fn in LAUNCHERS}
 
     def keeping(fn):
-        def launch(*args):
+        def launch(*args, **kwargs):
             kept.append((call[0], fn, args))
-            return real[fn](*args)
+            return real[fn](*args, **kwargs)
         return launch
 
     for fn, (_, attr) in LAUNCHERS.items():
@@ -492,6 +526,8 @@ def phase3(rng, kept):
             read_counts(path, counts)
 
     q, s = pairs[100_000]
+    SINGLE["align 100k semiglobal affine"] = (
+        q, s, results[("align", 100_000, "semiglobal", "AffineScoring")])
     for scoring in (sc, asc):
         scheme = type(scoring).__name__
         aln = results[("align", 100_000, "semiglobal", scheme)]
@@ -596,6 +632,10 @@ def phase3_batch(rng, kept, counts):
         print(f"phase3 cli -b --score-only local 1000 pairs: {len(lines)} "
               f"scores equal", flush=True)
     read_counts("batch", counts)
+    SINGLE["batch 10k local"] = (
+        *pairs(256, 10_000),
+        results[("align_scores_batch", 256, 10_000, "local", "LinearScoring")],
+        results[("align_batch", 256, 10_000, "local", "LinearScoring")])
 
     for count, mode in ((10_000, "local"), (1000, "global"),
                         (1000, "semiglobal")):
@@ -709,7 +749,7 @@ def bound(fn: str, args, sm_clock_mhz: float):
     elif fn.startswith("band"):
         q, s = args[1], args[2]
         h, n = q.numel(), s.numel()
-        affine = fn == "band_affine"
+        affine = fn.endswith("_affine")
         # rows and columns in and out (H, and affine also F and E), and
         # each strip's best
         nbytes = (h + n + 4 * 2 * (n + h) * (2 if affine else 1)
@@ -734,10 +774,12 @@ def bound(fn: str, args, sm_clock_mhz: float):
             sc, sgaps, _, preds = args[6:10]
             affine = hasattr(sc, "gap_open")
             nbytes += B + 4 * (sum_m + sum_n) + 12 * B
+            per_word = 8 if affine else 16
             if preds:
-                nbytes += 4 * int((ms * ((ns + 15) // 16)).sum())
+                nbytes += 4 * int((ms * (-(-ns // per_word))).sum())
             ops = cells * (OPS["swarm_affine" if affine else "swarm"]
-                           + (OPS["codes"] if preds else 0))
+                           + (OPS["codes4" if affine else "codes"] if preds
+                              else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -805,6 +847,123 @@ def phase2_band(rng, errors):
         check(err == 0, f"{tag} band 1 with 7 CTAs for {strips} strips")
         print(f"{tag} band 1 with 7 CTAs for {strips} strips equal=True",
               flush=True)
+
+
+@contextlib.contextmanager
+def plain_collectives():
+    """K10 launches replaced by their plain versions inside the block, each
+    on idle cards: the plain versions of a sweep's ranks then run one after
+    another, in rank order, as on the CPU."""
+    from anyseq_tpu_torch.kernels import band
+
+    real = band.launch_collective, band.launch_collective_affine
+
+    def idle():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    def plain(fn):
+        def run(lib, *args, **kwargs):
+            idle()
+            out = fn(*args)
+            idle()
+            return out
+        return run
+
+    band.launch_collective = plain(band.plain_collective)
+    band.launch_collective_affine = plain(band.plain_collective_affine)
+    try:
+        yield
+    finally:
+        band.launch_collective, band.launch_collective_affine = real
+
+
+def rings():
+    """The device lists phase 2 runs K10 over: 2 and 4 ranks of cuda:0,
+    and every card where there are several."""
+    out = [["cuda:0"] * 2, ["cuda:0"] * 4]
+    if torch.cuda.device_count() >= 2:
+        out.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    return out
+
+
+def phase2_collective(rng, errors):
+    """K10 and K10 affine against their plain versions on the card, over
+    each of rings(): two chained bands of COLL_ROWS rows of a related pair
+    COLL_BP wide, in 3 modes (and affine GLOBAL start_gap); then the same
+    rows against a subject that leaves the last rank without columns."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.dist import collective
+    from anyseq_tpu_torch.kernels._sweep import STRIP
+
+    dev = torch.device(DEVICE)
+    qb, sb = related_pair(rng, COLL_BP)
+    q = torch.frombuffer(bytearray(qb[:2 * COLL_ROWS]),
+                         dtype=torch.uint8).to(dev)
+    s_full = torch.frombuffer(bytearray(sb), dtype=torch.uint8).to(dev)
+    cases = [(sc, mode, False)
+             for sc in (LinearScoring(), AffineScoring(*AFFINE))
+             for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL)]
+    cases.append((AffineScoring(*AFFINE), Mode.GLOBAL, True))
+    for ring in rings():
+        K = len(ring)
+        # n where the last rank has no columns: Nl = 1024, K - 1 active
+        s_empty = s_full[:(K - 1) * STRIP - 100]
+        for s in (s_full, s_empty):
+            Nl, active, _, bands = collective.geometry(q.numel(), s.numel(),
+                                                       K, COLL_ROWS)
+            for sc, mode, sg in cases:
+                name = ("band_collective_affine" if isinstance(sc, AffineScoring)
+                        else "band_collective")
+
+                def run():
+                    return collective.launch_pair(
+                        q, s, mode, sc, collective.ranks_of(ring), COLL_ROWS,
+                        sg)()
+
+                def plain():
+                    with plain_collectives():
+                        return run()
+
+                err, _, _ = compare(
+                    f"phase2 K10 {name} {mode.value} start_gap={sg} over "
+                    f"{K} ranks {'+'.join(ring)} ({active} with columns, "
+                    f"{bands} bands) {q.numel()}x{s.numel()}", run, plain,
+                    reps=2)
+                errors[name] = max(errors.get(name, 0), err)
+
+
+def phase2_swarm_affine_codes(rng, errors):
+    """K7's affine 4-bit codes against the plain version on the card:
+    4,096 ragged problems of up to 256 x 256, 3 modes, mixed start-gap
+    flags (the mode is on no main path; its time is PERF.md's)."""
+    from anyseq_tpu_torch.core.types import AffineScoring, Mode
+    from anyseq_tpu_torch.kernels import swarm
+
+    dev = torch.device(DEVICE)
+    q3, s3, ms_, ns_ = random_batch(rng, dev, 4096, 256, 256)
+    B, M, N = q3.shape[0], q3.shape[1], s3.shape[1]
+    sg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    asc = AffineScoring(*AFFINE)
+    for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
+        args = (q3, s3, ms_, ns_, mode, asc, sg, True, True)
+        err, ms, _ = compare(
+            f"phase2 K7 swarm_preds affine codes {mode.value} {B} problems "
+            f"up to {M}x{N}", lambda: swarm.score_pairs_swarm(*args),
+            lambda: swarm.plain(*args))
+        b_ms, by = bound("swarm", (None, *args), sm_clock_of())
+        print(f"phase2 K7 affine codes {mode.value} bound_ms={b_ms:.4f} "
+              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+        errors["swarm_preds"] = max(errors.get("swarm_preds", 0), err)
+
+
+def sm_clock_of() -> float:
+    """The card's top SM clock in MHz (nvidia-smi)."""
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()
+    return float(clock[torch.cuda.current_device()])
 
 
 def phase3_genome(rng, kept, counts):
@@ -890,10 +1049,10 @@ def phase3_genome(rng, kept, counts):
             sweeps[current[0]] = out
         return out
 
-    def per_half(q, s, parts, sc):
+    def per_half(q, s, parts, sc, mesh=None):
         levels.append((current[0], len(parts),
                        max(p[1] - p[0] for p in parts)))
-        return real_per_half(q, s, parts, sc)
+        return real_per_half(q, s, parts, sc, mesh)
 
     calls = (
         (score_1, q1, s1, lambda: pt.align_score(q1, s1, "global", sc,
@@ -954,6 +1113,10 @@ def phase3_genome(rng, kept, counts):
         hirschberg._level_per_half = real_per_half
     read_counts("genome", counts)
     lib = _build.library()
+    SINGLE["genome"] = {"q1": q1, "s1": s1, "q6": q6, "s6": s6,
+                        "score 1 Mbp local affine": results[score_2],
+                        "align 1 Mbp semiglobal": results[align_3],
+                        "score 4.6 Mbp global": results[ecoli_6]}
 
     # calls 1 and 2: the chain against one unchained sweep of the pair
     q, s = as_tensor(q1, DEVICE), as_tensor(s1, DEVICE)
@@ -1010,19 +1173,12 @@ def phase3_genome(rng, kept, counts):
               f"{time.perf_counter() - t0:.4f} s", flush=True)
     del r
 
-    # call 6: against the same pair reversed, a chain with other band
-    # boundaries; the peak memory beside one K1 sweep's boundary columns
+    # call 6: the peak memory beside one K1 sweep's boundary columns (the
+    # mesh path holds its score to the collective sweep's)
     m6, n6 = len(q6), len(s6)
     k1_bytes = (-(-n6 // 1024) - 1) * m6 * 4
     print(f"phase3 4.6 Mbp global: K1's boundary columns would take "
           f"{k1_bytes / 1e9:.1f} GB", flush=True)
-    t0 = time.perf_counter()
-    rev = pt.align_score(q6[::-1], s6[::-1], "global", sc, device=DEVICE)
-    wall = time.perf_counter() - t0
-    check(rev == results[ecoli_6],
-          f"4.6 Mbp global {results[ecoli_6]} == reversed {rev}")
-    print(f"phase3 4.6 Mbp global reversed: score={rev} equal=True "
-          f"wall_s={wall:.4f}", flush=True)
 
     # call 7: K8 inside the levels, a level of more than 2 parts whose
     # tallest passes M_MAX run per half, and the strings rescored
@@ -1040,6 +1196,163 @@ def phase3_genome(rng, kept, counts):
           f"align_score {again}")
     print(f"phase3 2.2 Mbp global rescored={got} align_score={again} "
           f"equal=True", flush=True)
+
+
+def mesh_devices():
+    """The mesh path's devices: every card where there are two or more,
+    else 2 ranks of cuda:0."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return [f"cuda:{i}" for i in range(count)]
+    return ["cuda:0"] * 2
+
+
+def phase3_mesh(rng, kept, counts):
+    """The mesh path through the public multi-device entry points, driven
+    with every launch count set to 0 just before it and read just after;
+    each call with its wall, GCUPS and launches, and held to the
+    single-device result of the same inputs from the earlier paths."""
+    import dataclasses
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.dist import batch as dist_batch
+    from anyseq_tpu_torch.dist.collective import score_pairs_collective
+    from anyseq_tpu_torch.dist.dryrun import dryrun_multichip
+    from anyseq_tpu_torch.dist.mesh import make_mesh
+    from anyseq_tpu_torch.dist.sharded import score_pair_sharded
+    from anyseq_tpu_torch.engine import linmem
+    from anyseq_tpu_torch.kernels import _build
+
+    print("phase3 mesh: nvidia-smi -L:\n" + subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    devices = mesh_devices()
+    mesh = make_mesh(devices=devices)
+    print(f"phase3 mesh: {'every card' if len(set(devices)) > 1 else '2 ranks of cuda:0'}"
+          f" {mesh}", flush=True)
+    sc = pt.LinearScoring()
+    asc = pt.AffineScoring(*AFFINE)
+    g = SINGLE["genome"]
+    q5, s5, mm = SINGLE["align 100k semiglobal affine"]
+    qs, ss, batch_scores, batch_alns = SINGLE["batch 10k local"]
+    pairs = [related_pair(rng, MESH_2D_BP) for _ in range(3)]
+
+    def score(q, s, mode, scoring):
+        outs = score_pair_sharded(q, s, mode, scoring, mesh)
+        return int(linmem.extract_end(outs, len(q), len(s), mode)[0])
+
+    def two_d(scoring):
+        return score_pairs_collective(
+            [p[0] for p in pairs], [p[1] for p in pairs], "global", scoring,
+            make_mesh(dp=2, sp=2, devices=[mesh_devices()[0]] * 4))
+
+    t = lambda aln: dataclasses.astuple(aln)   # noqa: E731
+    calls = (
+        ("score_pair_sharded 4.6 Mbp global linear", g["q6"], g["s6"],
+         lambda: score(g["q6"], g["s6"], "global", sc),
+         lambda out: out == g["score 4.6 Mbp global"]),
+        ("score_pair_sharded 1 Mbp local affine", g["q1"], g["s1"],
+         lambda: score(g["q1"], g["s1"], "local", asc),
+         lambda out: out == g["score 1 Mbp local affine"]),
+        ("align(mesh=) 1 Mbp semiglobal linear", g["q1"], g["s1"],
+         lambda: pt.align(g["q1"], g["s1"], "semiglobal", sc, mesh=mesh),
+         lambda out: t(out) == t(g["align 1 Mbp semiglobal"])),
+        ("align(mesh=) 100k semiglobal affine", q5, s5,
+         lambda: pt.align(q5, s5, "semiglobal", asc, mesh=mesh),
+         lambda out: t(out) == t(mm)),
+        ("align_scores_batch_sharded 10,000 local pairs ~256 bp", qs, ss,
+         lambda: dist_batch.align_scores_batch_sharded(qs, ss, "local", sc,
+                                                       mesh),
+         lambda out: out.tolist() == batch_scores.tolist()),
+        ("align_batch(mesh=) 10,000 local pairs ~256 bp", qs, ss,
+         lambda: pt.align_batch(qs, ss, "local", sc, mesh=mesh),
+         lambda out: [t(a) for a in out] == [t(a) for a in batch_alns]),
+        (f"dryrun_multichip({len(devices)})", [b"A"], [b"A"],
+         lambda: dryrun_multichip(len(devices), devices), lambda out: True),
+        ("score_pairs_collective 2x2 of cuda:0, 3 pairs global linear",
+         [p[0] for p in pairs], [p[1] for p in pairs], lambda: two_d(sc),
+         lambda out: [r[0] for r in out] == [
+             pt.align_score(a, b, "global", sc, device=DEVICE)
+             for a, b in pairs]),
+        ("score_pairs_collective 2x2 of cuda:0, 3 pairs global affine",
+         [p[0] for p in pairs], [p[1] for p in pairs], lambda: two_d(asc),
+         lambda out: [r[0] for r in out] == [
+             pt.align_score(a, b, "global", asc, device=DEVICE)
+             for a, b in pairs]),
+    )
+    torch.cuda.synchronize()
+    for k in _build.launches:
+        _build.launches[k] = 0
+    current, outs = [None], {}
+    with kept_launches(kept, current):
+        for name, q, s, fn, _ in calls:
+            current[0] = name
+            before = dict(_build.launches)
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cells = (sum(len(a) * len(b) for a, b in zip(q, s))
+                     if isinstance(q, list) else len(q) * len(s))
+            delta = {k: v - before[k] for k, v in _build.launches.items()
+                     if v > before[k]}
+            MESH_WALLS[name] = wall
+            print(f"phase3 mesh {name} cells={cells} wall_s={wall:.4f} "
+                  f"gcups={cells / wall / 1e9:.2f} "
+                  f"launches={json.dumps(delta)}", flush=True)
+    read_counts("mesh", counts)
+    for name, _, _, _, same in calls:
+        check(same(outs[name]), f"mesh: {name} == the single-device result")
+    print(f"phase3 mesh: all {len(calls)} calls equal to the single-device "
+          f"results (4.6 Mbp score {outs[calls[0][0]]})", flush=True)
+
+
+def cut_collective(fn, args, rows: int):
+    """A kept K10 (or K10 affine) launch cut to its first `rows` rows: the
+    band's rows and its explicit left columns (the first rank's)."""
+    args = list(args)
+    for i in ((1, 5) if fn == "band_collective" else (1, 6, 7)):
+        if args[i] is not None:
+            args[i] = args[i][:rows]
+    return tuple(args)
+
+
+def phase4_mesh(kept, timings, errors, sm_clock_mhz):
+    """K10 and K10 affine on the first band of the mesh path's 4.6 Mbp
+    linear and 1 Mbp local affine scores: each rank's whole launch
+    replayed alone (its halo already published) with its time and bound,
+    then each rank's launch cut to CUT_ROWS rows against its plain
+    version (the last rank's times go to the JSON line, for the halo it
+    reads); and each score's wall beside the sum of its launches'
+    bounds."""
+    for call, fn in (("score_pair_sharded 4.6 Mbp global linear",
+                      "band_collective"),
+                     ("score_pair_sharded 1 Mbp local affine",
+                      "band_collective_affine")):
+        launches = [args for c, f, args in kept if c == call and f == fn]
+        first = [args for args in launches if args[-1] == 0]     # i0 == 0
+        # whole bands first: a cut replay publishes fewer halo rows
+        for rank, args in enumerate(first):
+            ms = cuda_ms(lambda: launcher(fn)(*args), 1)
+            b_ms, by = bound(fn, args, sm_clock_mhz)
+            cells = args[1].numel() * args[2].numel()
+            print(f"phase4 {fn} alone {call} rank {rank} first band "
+                  f"{args[1].numel()}x{args[2].numel()} kernel_ms={ms:.3f} "
+                  f"gcups={cells / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
+                  f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+        for rank, args in enumerate(first):
+            cut = cut_collective(fn, args, CUT_ROWS)
+            err, ms, plain_ms = compare(
+                f"phase4 K10 {fn} {call} rank {rank} first band "
+                f"{CUT_ROWS}x{cut[2].numel()}", lambda: launcher(fn)(*cut),
+                lambda: plain_of(fn, cut), reps=3)
+            errors[fn] = max(errors.get(fn, 0), err)
+            timings[fn] = (ms, plain_ms, *bound(fn, cut, sm_clock_mhz))
+        b_s = sum(bound(fn, args, sm_clock_mhz)[0] for args in launches) / 1e3
+        wall = MESH_WALLS[call]
+        print(f"phase4 {fn} {call}: {len(launches)} launches bound_s="
+              f"{b_s:.4f} wall_s={wall:.4f} share={b_s / wall:.3f}",
+              flush=True)
 
 
 def chained_cuts(fn, args, rows: int):
@@ -1078,12 +1391,10 @@ def chained_cuts(fn, args, rows: int):
 def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
     """K8 and K8 affine against their plain versions on the first band of
     the 1 Mbp genome scores, cut to CUT_ROWS rows (the times reported in
-    the JSON line); K8 at the whole height of that band, its subject cut
-    to TALL_COLS columns (the plain version takes ~2.7 ms a row at the
-    full width, ~12 min for the band); each whole 1 Mbp band against
-    itself run as a chain of CUT_ROWS-row bands; then the first whole
-    band of the 1 Mbp and 4.6 Mbp global scores alone, the kernel's time
-    and its bound (the 1 Mbp ones into `whole`, for the JSON line)."""
+    the JSON line); each whole 1 Mbp band against itself run as a chain
+    of CUT_ROWS-row bands; then the first whole band of the 1 Mbp and 4.6
+    Mbp global scores alone, the kernel's time and its bound (the 1 Mbp
+    ones into `whole`, for the JSON line)."""
     score_1 = ("align_score", GENOME_BP, "global", "LinearScoring")
     score_2 = ("align_score", GENOME_BP, "local", "AffineScoring")
     ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
@@ -1105,14 +1416,6 @@ def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
                                     lambda: plain_of(fn, cut), reps=3)
         errors[fn] = max(errors.get(fn, 0), err)
         timings[fn] = (ms, plain_ms, *bound(fn, cut, sm_clock_mhz))
-    args = list(first_band(score_1, "band"))
-    args[2], args[3] = args[2][:TALL_COLS], args[3][:TALL_COLS]
-    tall = tuple(args)
-    label = (f"phase4 K8 band {' '.join(map(str, score_1))} whole height "
-             f"{tall[1].numel()}x{TALL_COLS}")
-    err, _, _ = compare(label, lambda: launcher("band")(*tall),
-                        lambda: plain_of("band", tall), reps=1)
-    errors["band"] = max(errors["band"], err)
     for call, fn in ((score_1, "band"), (score_2, "band_affine")):
         args = first_band(call, fn)
         err = max_abs_err(launcher(fn)(*args),
@@ -1268,11 +1571,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[torch.cuda.current_device()]
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()
-    sm_clock_mhz = float(clock[torch.cuda.current_device()])
+    sm_clock_mhz = sm_clock_of()
     print(f"phase1 card: {smi}, max SM clock {sm_clock_mhz:.0f} MHz",
           flush=True)
 
@@ -1286,12 +1585,16 @@ def main() -> int:
     timings, errors, kept, whole = {}, {}, [], {}
     phase2(rng, errors)
     phase2_band(rng, errors)
+    phase2_collective(rng, errors)
+    phase2_swarm_affine_codes(rng, errors)
     counts = phase3(rng, kept)
     phase3_batch(rng, kept, counts)
     phase3_small(rng)
     phase3_genome(rng, kept, counts)
+    phase3_mesh(rng, kept, counts)
     phase4(kept, timings, errors, sm_clock_mhz)
     phase4_band(kept, timings, errors, whole, sm_clock_mhz)
+    phase4_mesh(kept, timings, errors, sm_clock_mhz)
 
     # no PyTorch call computes a DP alignment or a traceback walk, so no
     # kernel has a library yardstick; K8's times are at a cut of a band,

@@ -215,9 +215,9 @@ def test_tall_paths_match_reference(monkeypatch, mode, scheme):
         calls["chained"] += 1
         return chained(*args, **kwargs)
 
-    def count_per_half(q, s, parts, sc):
+    def count_per_half(q, s, parts, sc, mesh=None):
         calls["per_half_parts"] = max(calls["per_half_parts"], len(parts))
-        return per_half(q, s, parts, sc)
+        return per_half(q, s, parts, sc, mesh)
 
     monkeypatch.setattr(band, "score_pair_chained", count_chained)
     monkeypatch.setattr(hirschberg, "_level_per_half", count_per_half)

@@ -15,6 +15,7 @@ import anyseq_tpu_torch as pt
 from anyseq_tpu.engine import batch as jax_batch
 from anyseq_tpu.kernels import swarm as jax_swarm
 from anyseq_tpu_torch.engine import batch
+from anyseq_tpu_torch.engine.affine import unpack_codes4
 from anyseq_tpu_torch.engine.linmem import unpack_codes
 from anyseq_tpu_torch.kernels import _build, swarm
 
@@ -262,12 +263,38 @@ def test_bad_inputs_raise():
         with pytest.raises(ValueError, match="equal length"):
             fn([b"ACGT"], [b"ACGT", b"AC"], device="cpu")
         assert len(fn([], [], device="cpu")) == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh of another type is refused (mesh= itself runs:
+    # tests/test_torch_dist_construct.py)
+    with pytest.raises(TypeError, match="Mesh"):
         pt.align_batch([b"ACGT"], [b"ACGT"], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="K7"):
-        swarm.score_pairs_swarm(*_t(*_batch(np.random.default_rng(0), 2, 4,
-                                            4)), "global",
-                                pt.AffineScoring(), emit_preds=True)
+    # K7's affine codes run: 8 four-bit codes a word
+    res = swarm.score_pairs_swarm(*_t(*_batch(np.random.default_rng(0), 2, 4,
+                                              9)), "global",
+                                  pt.AffineScoring(), emit_preds=True)
+    assert res["preds"].shape == (2, 4, 2)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_k7_affine_codes_match_swarm_kernel(mode):
+    """K7's affine 4-bit codes (the plain version) against the JAX
+    package's swarm kernel in interpret mode (score_pairs_swarm_preds):
+    the dense codes of every cell within each problem's lengths, mixed
+    start-gap flags."""
+    rng = np.random.default_rng(8)
+    B, M, N = 19, 30, 40
+    q, s, ms, ns = _batch(rng, B, M, N)
+    sg = rng.integers(0, 2, B).astype(bool)
+    jsc, sc = _scorings("affine")
+    want = np.asarray(jax_swarm.score_pairs_swarm_preds(
+        q, s, ms, ns, mode, jsc, sgaps=sg, interpret=True)["preds"])
+    got = swarm.score_pairs_swarm(*_t(q, s, ms, ns), mode, sc,
+                                  torch.from_numpy(sg), emit_preds=True)
+    codes = unpack_codes4(got["preds"], N).numpy()
+    for b in range(B):
+        np.testing.assert_array_equal(codes[b, :ms[b], :ns[b]],
+                                      want[b, :ms[b], :ns[b]])
+    # nothing past a problem's lengths
+    assert not codes[0, ms[0]:].any() and not codes[0, :, ns[0]:].any()
 
 
 def test_cpu_batches_launch_no_kernel():

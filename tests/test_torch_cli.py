@@ -106,8 +106,20 @@ def test_cli_bad_lengths(capsys):
 
 
 def test_cli_mesh_not_ported(capsys):
-    assert cli.main(["-r", "16", "24", "--mesh", "--device", "cpu"]) != 0
-    assert "item 12" in capsys.readouterr().err
+    """--mesh runs (it exited before the multi-device path was ported):
+    the alignments over a mesh of 8 CPU devices print the JAX package's
+    lines over its 8 virtual devices."""
+    out = _same(["-r", "300", "400", "--mesh", "--mode", "semiglobal",
+                 "--print"], capsys)
+    assert "testing semiglobal alignment N ms" in out
+
+
+@pytest.mark.parametrize("flags", [["--score-only"], ["--mode", "local"]],
+                         ids=["score-only", "align"])
+def test_cli_mesh_batch(batch_files, flags, capsys):
+    """-b with --mesh: align_scores_batch_sharded / align_batch(mesh=)."""
+    out = _same(["-b", *batch_files, "--mesh", *flags], capsys)
+    assert out.count("pair ") == 13
 
 
 def _recorded_outputs(directory, corrupt_first: bool):

@@ -210,8 +210,9 @@ def test_walk_affine_kernel(emu_lib, mode, sc):
 def test_swarm_kernel(emu_lib, B, M, N, mode, sc):
     """K7 with one CTA, a CTA edge on either side of 128 problems and three
     CTAs; ragged lengths with m = n = 1 problems; bytes past each length
-    are real bases. Linear with and without codes, and LOCAL without
-    positions; affine with mixed start-gap flags and ge = 0."""
+    are real bases. With and without codes (2-bit linear, 4-bit affine),
+    and LOCAL without positions; affine with mixed start-gap flags and
+    ge = 0."""
     rng = np.random.default_rng(B * M * N + 5)
     q = torch.from_numpy(rng.integers(65, 69, (B, M)).astype(np.uint8))
     s = torch.from_numpy(rng.integers(65, 69, (B, N)).astype(np.uint8))
@@ -221,8 +222,7 @@ def test_swarm_kernel(emu_lib, B, M, N, mode, sc):
     ms[0], ns[0] = M, N
     affine = isinstance(sc, AffineScoring)
     sg = _flags(rng, B) if affine else None
-    cases = [(True, False), (False, False)] + ([] if affine
-                                               else [(True, True)])
+    cases = [(True, False), (False, False), (True, True)]
     for need_pos, preds in cases:
         got = swarm.launch(emu_lib, q, s, ms, ns, mode, sc, sg, need_pos,
                            preds)
@@ -300,3 +300,70 @@ def test_reduce_best_order():
     bests = torch.tensor([[5, 9, 3], [7, 4, 2000], [7, 4, 1100], [7, 6, 1]],
                          dtype=torch.int32)
     assert wavefront.reduce_best(bests).tolist() == [7, 4, 1100]
+
+
+@pytest.fixture
+def emu_collective(emu_lib, monkeypatch):
+    """The collective sweep's CPU branch routed to K10 of the host
+    emulation (its ranks' launches run in rank order, each to its end
+    before the next begins, as host_emu.h runs CTAs), 2 CTAs a launch."""
+    monkeypatch.setattr(band, "plain_collective", lambda *a: (
+        band.launch_collective(emu_lib, *a, grid=2)))
+    monkeypatch.setattr(band, "plain_collective_affine", lambda *a: (
+        band.launch_collective_affine(emu_lib, *a, grid=2)))
+
+
+@pytest.mark.parametrize("sc", [SC] + ASC, ids=str)
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("k,m,n,band_rows", [
+    (2, 70, 2500, None), (3, 130, 3100, 50), (4, 65, 2972, 64),
+    (4, 5, 900, None)])
+def test_band_collective_kernel(emu_collective, k, m, n, band_rows, mode,
+                                sc):
+    """K10 / K10 affine over k ranks, one launch a rank a band, against
+    one plain sweep of the pair: halos between ranks (ragged strips, rows
+    on both sides of the 64-row chunks), chained bands whose corner is
+    the halo's, ranks past column n - 1 not launched (n = 2,972 over 4
+    ranks, and n = 900, where only rank 0 has columns); affine GLOBAL also
+    under start_gap; one launch counted a rank a band."""
+    from anyseq_tpu_torch.dist import collective
+    from anyseq_tpu_torch.dist.mesh import Mesh
+
+    rng = np.random.default_rng(k * m * n)
+    q, s = _seq(rng, m), _seq(rng, n)
+    is_affine = isinstance(sc, AffineScoring)
+    _, active, _, bands = collective.geometry(m, n, k, band_rows)
+    for start_gap in ([False, True] if is_affine and mode is Mode.GLOBAL
+                      else [False]):
+        name = "band_collective_affine" if is_affine else "band_collective"
+        before = _build.launches[name]
+        got = collective.score_pair_collective(q, s, mode, sc,
+                                               Mesh(["cpu"] * k, ("sp",)),
+                                               band_rows=band_rows,
+                                               start_gap=start_gap)
+        assert _build.launches[name] - before == active * bands
+        if is_affine:
+            want = wavefront.plain_affine(q, s, mode, sc, start_gap, True)
+            got.pop("last_row_f")
+        else:
+            want = wavefront.plain(q, s, mode, sc)
+        assert got.keys() == want.keys()
+        for key in want:
+            assert torch.equal(got[key], want[key]), (key, start_gap)
+
+
+@pytest.mark.parametrize("sc", [SC, ASC[0]], ids=str)
+def test_band_collective_kernel_local_tie(emu_collective, sc):
+    """Equal LOCAL maxima on both sides of a rank boundary (column 1024):
+    the first in row-major order, from whichever rank holds it."""
+    from anyseq_tpu_torch.dist import collective
+    from anyseq_tpu_torch.dist.mesh import Mesh
+
+    q = torch.full((40,), 65, dtype=torch.uint8)
+    s = torch.full((2100,), 65, dtype=torch.uint8)
+    got = collective.score_pair_collective(q, s, Mode.LOCAL, sc,
+                                           Mesh(["cpu"] * 2, ("sp",)))
+    want = (wavefront.plain_affine(q, s, Mode.LOCAL, sc)
+            if isinstance(sc, AffineScoring)
+            else wavefront.plain(q, s, Mode.LOCAL, sc))
+    assert torch.equal(got["best"], want["best"])

@@ -12,6 +12,7 @@ import torch
 import anyseq_tpu
 import anyseq_tpu_torch as pt
 from anyseq_tpu.io.alignment import print_alignment as jax_print_alignment
+from anyseq_tpu_torch.dist.mesh import make_mesh
 from anyseq_tpu_torch.engine import hirschberg
 from anyseq_tpu_torch.io.alignment import print_alignment
 from anyseq_tpu_torch.kernels import (
@@ -28,6 +29,11 @@ from conftest import mutate, random_dna
 MODULES = [
     "anyseq_tpu_torch",
     "anyseq_tpu_torch.cli",
+    "anyseq_tpu_torch.dist.batch",
+    "anyseq_tpu_torch.dist.collective",
+    "anyseq_tpu_torch.dist.dryrun",
+    "anyseq_tpu_torch.dist.mesh",
+    "anyseq_tpu_torch.dist.sharded",
     "anyseq_tpu_torch.engine.affine",
     "anyseq_tpu_torch.engine.api",
     "anyseq_tpu_torch.engine.batch",
@@ -91,12 +97,19 @@ def test_scoring_from_reference():
         pt.AffineScoring(2, -1, 1, -1)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
+def test_unported_options_raise(tmp_path):
+    """mesh= and mesh= with checkpoint_path= run (they raised before the
+    multi-device path was ported); a mesh of another type is refused."""
+    mesh = make_mesh(devices=["cpu"] * 2)
+    q, s = b"GATTACA" * 9, b"GATTTACA" * 40
+    want = pt.align(q, s, "local", device="cpu")
+    assert dataclasses.astuple(pt.align(q, s, "local", mesh=mesh)) == \
+        dataclasses.astuple(want)
+    got = hirschberg.align_hirschberg(q, s, "local", device="cpu", mesh=mesh,
+                                      checkpoint_path=str(tmp_path / "ck"))
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    with pytest.raises(TypeError, match="Mesh"):
         pt.align(b"ACGT", b"ACGT", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        hirschberg.align_hirschberg(b"ACGT", b"ACGT", "global", device="cpu",
-                                    mesh=object(), checkpoint_path="ck.npz")
 
 
 def test_inputs_str_bytes_array_agree():
@@ -118,6 +131,12 @@ def test_cpu_runs_launch_no_kernel(rng):
             pt.align_score(q, s, mode, sc, device="cpu")
             pt.align(q, s, mode, sc, traceback="hirschberg", device="cpu")
             pt.align_full_tb(q[:100], s[:120], mode, sc, device="cpu")
+            # the collective sweep (K10) and K7's codes, linear and affine
+            pt.align(q, s, mode, sc, mesh=make_mesh(devices=["cpu"] * 2))
+            t = torch.from_numpy(np.frombuffer(q, np.uint8).copy())
+            lens = torch.tensor([len(q)])
+            swarm.score_pairs_swarm(t[None], t[None], lens, lens, mode, sc,
+                                    emit_preds=True)
     assert set(_build.launches.values()) == {0}
 
 
@@ -149,6 +168,13 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         band.score_band(q, q, row, 0, row, pt.Mode.GLOBAL, pt.AffineScoring(),
                         row, row)
+    with pytest.raises(ValueError, match="device"):
+        band.score_band_collective(q, q, row, 0, row, pt.Mode.GLOBAL,
+                                   pt.LinearScoring(), None, None, 0, 0)
+    with pytest.raises(ValueError, match="device"):
+        band.score_band_collective(q, q, row, 0, row, pt.Mode.GLOBAL,
+                                   pt.AffineScoring(), None, None, 0, 0,
+                                   rowf_in=row, cole_in=row)
 
 
 def test_every_kernel_has_a_launch_count():
@@ -158,8 +184,9 @@ def test_every_kernel_has_a_launch_count():
         "wavefront_score", "wavefront_preds", "walk", "lastcols",
         "wavefront_affine_score", "wavefront_affine_preds",
         "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
-        "band", "band_affine"}
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) == 9
+        "band", "band_affine", "band_collective", "band_collective_affine"}
+    # one entry a source, and the peer-access switch of the collective
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 1 == 10
 
 
 def test_wrappers_check_types():
