@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
            "walk_affine.cu", "lastcols_affine.cu", "swarm.cu", "band.cu",
            "band_affine.cu")
-HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh")
+HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh", "band_sweep.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -59,6 +59,7 @@ SIGNATURES = {
     "anyseq_band_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "anyseq_band_grid": (_I, _I, _I, _I, _I),
     "anyseq_enable_peer": (_I, _I),
 }
 

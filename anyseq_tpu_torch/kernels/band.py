@@ -84,7 +84,7 @@ def score_band(q_band, s, row_in, corner: int, col_in, mode: Mode,
 def launch(lib, q, s, row_in, corner, col_in, mode: Mode, sc: LinearScoring,
            grid: int = 0):
     """Launch K8 of `lib` on the band, wherever it lies; `grid` > 0 caps
-    the CTAs."""
+    the warps (one a strip; 0: the grid `band.cu` chooses)."""
     return _launch("band", lib, q, s, row_in, corner, col_in, mode, sc, None,
                    None, 0, 0, 1, grid)
 
@@ -92,7 +92,8 @@ def launch(lib, q, s, row_in, corner, col_in, mode: Mode, sc: LinearScoring,
 def launch_affine(lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
                   mode: Mode, sc: AffineScoring, grid: int = 0):
     """Launch K8 affine of `lib` on the band, wherever it lies; `grid` > 0
-    caps the CTAs."""
+    caps the CTAs (of 64 threads, one a strip: K8 affine still runs the
+    older strip core)."""
     return _launch_affine("band_affine", lib, q, s, row_in, rowf_in, corner,
                           col_in, cole_in, mode, sc, None, None, 0, 0, 1,
                           grid)
@@ -227,7 +228,7 @@ def score_band_collective(q_band, s, row_in, corner, col_in, mode: Mode,
     `halo_out` (None for the last rank). On a CUDA tensor it launches K10
     on the current device and stream, which must not wait on a launch
     enqueued after it; `share` launches of the sweep run on this card at
-    once and split its CTAs."""
+    once and split its resident warps (linear) or CTAs (affine)."""
     mode = Mode.parse(mode)
     is_affine = isinstance(sc, AffineScoring)
     cols = () if halo_in is not None else (
@@ -272,7 +273,8 @@ def launch_collective(lib, q, s, row_in, corner, col_in, mode: Mode,
                       sc: LinearScoring, halo_in, halo_out, b: int, i0: int,
                       share: int = 1, grid: int = 0):
     """Launch K10 of `lib` on band b of one rank's stripe (the arguments
-    of :func:`plain_collective`), wherever it lies."""
+    of :func:`plain_collective`), wherever it lies; `grid` > 0 caps the
+    warps, as for :func:`launch`."""
     return _launch("band_collective", lib, q, s, row_in, corner, col_in,
                    mode, sc, halo_in, halo_out, b, i0, share, grid)
 
@@ -282,7 +284,8 @@ def launch_collective_affine(lib, q, s, row_in, rowf_in, corner, col_in,
                              halo_out, b: int, i0: int, share: int = 1,
                              grid: int = 0):
     """Launch K10 affine of `lib` on band b of one rank's stripe (the
-    arguments of :func:`plain_collective_affine`), wherever it lies."""
+    arguments of :func:`plain_collective_affine`), wherever it lies;
+    `grid` > 0 caps the CTAs, as for :func:`launch_affine`."""
     return _launch_affine("band_collective_affine", lib, q, s, row_in,
                           rowf_in, corner, col_in, cole_in, mode, sc, halo_in,
                           halo_out, b, i0, share, grid)

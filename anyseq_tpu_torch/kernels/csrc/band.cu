@@ -20,98 +20,129 @@
 // the top of the band, which the wrapper reduces in row-major order. K10
 // (kernels/band.py plain_collective): the left column comes from the halo
 // `halo_in` (rows [i0, i0 + h) of the column left of the stripe, raised
-// per 64 rows in `halo_in_flag` by the rank on the left), the corner from
+// per 32 rows in `halo_in_flag` by the rank on the left), the corner from
 // `corner_ptr` (that halo's row i0 - 1, published in the band before) where
 // given, and the last column also goes to `halo_out` for the rank on the
 // right, raising `halo_out_flag`. Each band has its own flags.
 //
-// What bounds it on an H100: as K1, the dependent int32 max/add chain
-// along anti-diagonals (6 operations a cell), and latency; the band's
-// memory traffic is its two rows and its columns, O(n + h). The scratch
-// boundary columns between strips hold (strips - 1) * h ints, which is
-// why a chain of bands keeps a genome-length query in bounded memory
-// where one K1 sweep needs (strips - 1) * m. K10 adds to each rank the
-// fill of the ranks to its left: its first strip starts ~191 steps after
-// the left rank's last strip (PERF.md).
+// What bounds it on an H100: the dependent int32 max/add chain along each
+// row (one max and one add a cell on it; 6 integer operations a cell in
+// all, the bound PERF.md counts), and the integer pipe that runs them;
+// the band's memory traffic is its two rows and its columns, O(n + h).
+// The scratch boundary columns between strips hold (strips - 1) * h ints,
+// which is why a chain of bands keeps a genome-length query in bounded
+// memory where one K1 sweep needs (strips - 1) * m.
 //
-// Design: K1's (sweep.cuh): 1024-column strips claimed in order from a
-// ticket counter, 64 threads x 16 columns in registers, boundary columns
-// published every 64 rows. A strip's first row waits for its left
-// neighbour's first 64 rows, so a band pays a fill of about 64 * strips
-// steps before every strip runs. `max_grid` caps the CTAs (0: as many as
-// fit on the card), so the tests can run fewer CTAs than strips. K10 is K8
-// with the halo pointers set: its ranks run concurrently, one stream each,
-// and every rank must be resident while it spins on its left neighbour, so
-// `share` ranks on one card split its CTAs (strip_grid). Ranks on other
-// cards write the halo on the consumer's card through peer access, with
-// system-scope fences and uncached reads (sys_in / sys_out).
-#include "sweep.cuh"
+// What the first design (K1's strip sweep, sweep.cuh: 64 threads x 16
+// columns a CTA, a CTA barrier and a shared-memory hand-off a step,
+// publish every 64 rows, every resident CTA launched) lost, on an H100
+// 80GB HBM3 at 700 W (PERF.md): a 262,144 x 4.6 M band took
+// 1402-3737 ms at the full grid (~14 CTAs an SM, every thread of a
+// waiting CTA spinning), 1184.6 ms at 462 CTAs, 19.8-36.5% of its
+// bound; a step cost ~900 cycles for 16 cells a thread (a barrier, the
+// shared hand-off, a compare and three selects a cell for the best,
+// bound checks a cell); strips started ~191 steps apart.
+//
+// This core (band_sweep.cuh) and the grid below, step by step, with what
+// the card measured (tools/k8_ab.py; PERF.md, which also holds the times
+// of the variants measured slower, since removed from the source):
+// 1. The grid (grid_of): every strip at once where the card (or a K10
+//    rank's share of it) holds them, else as many warps as it holds over
+//    equal rounds; at most the strips a band keeps busy, ~(h + 31) / 63
+//    (kept: caps of 4-10 warps an SM ran 10-50% slower at 4.6 M columns,
+//    2,112 warps in 2.13 rounds 20% slower than 1,498 in 3; the busy cap
+//    ran 4,096- and 16,384-row bands 18-20% faster than every strip).
+// 2. One lane waits on a flag while its warp waits at __syncwarp (kept;
+//    a sleep that grew between looks measured the same as common.cuh's
+//    fixed one, and went).
+// 3. A warp a strip, 32 lanes x 32 columns, the boundary handed on with
+//    __shfl_up_sync, no CTA barrier; CTAs of 4 warps, one a scheduler
+//    (kept: one-warp CTAs ran 4-9% slower, and bimodal at 1 M columns).
+// 4. DPX on the chain: __viaddmax_s32(_relu), __vimax3_s32 (kept as
+//    written; nvcc makes the same VIADDMNMX of plain max/add code, so the
+//    intrinsics changed no time).
+// 5. The best from a row maximum a step, the row stored to shared memory
+//    only where it beats the lane's best; bound checks only in the last
+//    strip (kept: a compare and three selects a cell ran 12-36% slower).
+// 6. Publish and stage every 32 rows, staged the step before they are
+//    needed: strips start ~63 steps apart (kept: a chunk ahead, ~94
+//    steps, ran 4-7% slower; 16-row chunks ran short bands 13% faster
+//    and the 4.6 M band 5% slower, so the chunk stays 32).
+// K8 went from 1184.6 ms (the first design's best grid) to ~630 ms at
+// 262,144 x 4.6 M, 65-69% of its bound, and from ~405 to ~198 ms at
+// x 1 M (PERF.md).
+//
+// K10 is K8 with the halo pointers set: its ranks run concurrently, one
+// stream each, and every rank must be resident while it waits on its left
+// neighbour, so `share` ranks on one card split its warps (grid_of).
+// Ranks on other cards write the halo on the consumer's card through peer
+// access, with system-scope fences and uncached reads (sys_in / sys_out).
+#include "band_sweep.cuh"
 
 using namespace anyseq;
+using band_core::Band;
+using band_core::Halo;
 
 namespace {
 
-// The halo hand-off of one K10 launch (all null for K8).
-struct Halo {
-  const int* in;         // rows [i0, i0 + h) of the column left of the stripe
-  const int* in_flag;    // rows of `in` published in this band
-  int* out;              // rows [i0, i0 + h) of the right rank's halo
-  int* out_flag;
-  const int* corner;     // H[i0-1][-1] on the device, or null
-  bool sys_in, sys_out;  // across cards
-};
+using band_core::LANES;
+using band_core::WARPS;
+
+// Steps from a strip's start to its right neighbour's: a chunk of rows
+// and the warp's pipeline (band_sweep.cuh).
+constexpr int LAG = band_core::CHUNK + LANES - 1;
 
 template <bool LOCAL>
-__global__ void __launch_bounds__(SWEEP_THREADS)
-    band_kernel(const uint8_t* q, int h, const uint8_t* s, int n, Scoring sc,
-                const int* row_in, int corner, const int* col_in, Halo halo,
-                int strips, int* ticket, int* bcols, int* flags, int* row_out,
-                int* last_col, int* bests) {
-  __shared__ SweepShared sh;
-  __shared__ int slot;
+__global__ void __launch_bounds__(LANES * WARPS) band_kernel(Band B) {
+  __shared__ band_core::WarpShared sh[WARPS];
+  const int warp = (int)threadIdx.x / LANES;
+  if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
-    const int k = claim(ticket, &slot);
-    if (k >= strips) return;
-    Strip S;
-    S.q = q;
-    S.m = h;
-    S.s = s;
-    S.n = n;
-    S.col0 = k * STRIP;
-    S.global_init = false;
-    S.top = row_in;
-    S.corner = corner;
-    S.corner_ptr = halo.corner;
-    S.left_in = col_in;
-    S.left = k > 0 ? bcols + (size_t)(k - 1) * h : halo.in;
-    S.left_flag = k > 0 ? flags + (k - 1) : halo.in_flag;
-    S.left_sys = k == 0 && halo.sys_in;
-    S.right = k + 1 < strips ? bcols + (size_t)k * h : halo.out;
-    S.right_flag = k + 1 < strips ? flags + k : halo.out_flag;
-    S.right_sys = k + 1 == strips && halo.sys_out;
-    S.last_col = last_col;
-    S.last_row = row_out;
-    S.preds = nullptr;
-    S.pred_stride = 0;
-    S.best = bests + 3 * k;
-    sweep_strip<LOCAL, false, true>(S, sc, sh);
+    const int k = band_core::claim(B.ticket);
+    if (k >= B.strips) return;
+    if (k + 1 < B.strips)
+      band_core::sweep_strip<LOCAL, false>(B, k, sh[warp]);
+    else
+      band_core::sweep_strip<LOCAL, true>(B, k, sh[warp]);
   }
 }
 
+// The warps that sweep a launch's `strips` strips of h rows (WARPS a
+// CTA), of which `share` launches run on the card together (K10's ranks
+// of one card): every strip at once where the card's share holds them
+// all and the band is tall enough to keep them busy; else as many as it
+// holds, or as the band keeps busy, spread over equal rounds, so that no
+// last round runs a few strips alone. A strip starts LAG steps after the
+// one to its left and sweeps h + 31 steps, so about (h + 31) / LAG
+// strips run at once: more warps would only wait, and take scheduler slots
+// from those that run. `max_grid` > 0 overrides the choice (at most the
+// share of the card, so that the ranks of a sweep stay resident
+// together).
 template <bool LOCAL>
-int launch(const uint8_t* q, int h, const uint8_t* s, int n, Scoring sc,
-           const int* row_in, int corner, const int* col_in, Halo halo,
-           int share, int max_grid, int* ticket, int* bcols, int* flags,
-           int* row_out, int* last_col, int* bests, void* stream) {
-  auto kernel = band_kernel<LOCAL>;
-  const int strips = (n + STRIP - 1) / STRIP;
-  const int grid = strip_grid((const void*)kernel, SWEEP_THREADS, strips,
-                              share, max_grid);
-  ANYSEQ_LAUNCH(kernel, grid, SWEEP_THREADS, stream, q, h, s, n, sc, row_in,
-                corner, col_in, halo, strips, ticket, bcols, flags, row_out,
-                last_col, bests);
+int grid_of(int h, int strips, int share, int max_grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)band_kernel<LOCAL>, LANES * WARPS, 0);
+  const int parts = share > 1 ? share : 1;
+  const int resident = imax(per_sm * sms / parts, 1) * WARPS;
+  if (max_grid > 0) return imin(strips, imin(max_grid, resident));
+  const int busy = (h + LANES - 1 + LAG - 1) / LAG + 1;
+  const int cap = imin(resident, busy);
+  const int rounds = (strips + cap - 1) / cap;
+  return (strips + rounds - 1) / rounds;
+}
+
+template <bool LOCAL>
+int launch(Band B, int share, int max_grid, void* stream) {
+  B.workers = grid_of<LOCAL>(B.h, B.strips, share, max_grid);
+  ANYSEQ_LAUNCH(band_kernel<LOCAL>, (B.workers + WARPS - 1) / WARPS,
+                LANES * WARPS, stream, B);
   return (int)cudaGetLastError();
 }
+
+int strips_of(int n) { return (n + band_core::STRIP - 1) / band_core::STRIP; }
 
 }  // namespace
 
@@ -131,19 +162,35 @@ extern "C" int anyseq_band(const void* q, int h, const void* s, int n,
                            int sys_out, int share, int max_grid, void* ticket,
                            void* bcols, void* flags, void* row_out,
                            void* last_col, void* bests, void* stream) {
-  const Scoring sc{match, mismatch, gap};
   const Halo halo{(const int*)halo_in, (const int*)halo_in_flag,
                   (int*)halo_out,      (int*)halo_out_flag,
                   (const int*)corner_ptr, sys_in != 0, sys_out != 0};
-  auto run = [&](auto kernel_launch) {
-    return kernel_launch((const uint8_t*)q, h, (const uint8_t*)s, n, sc,
-                         (const int*)row_in, corner, (const int*)col_in, halo,
-                         share, max_grid, (int*)ticket, (int*)bcols,
-                         (int*)flags, (int*)row_out, (int*)last_col,
-                         (int*)bests, stream);
-  };
-  return mode == MODE_LOCAL ? run(launch<true>) : run(launch<false>);
+  const Band B{(const uint8_t*)q, h,        (const uint8_t*)s, n,
+               match,             mismatch, gap,
+               (const int*)row_in, corner,  (const int*)col_in,
+               halo,              strips_of(n), 0, (int*)ticket,
+               (int*)bcols,       (int*)flags, (int*)row_out,
+               (int*)last_col,    (int*)bests};
+  return mode == MODE_LOCAL ? launch<true>(B, share, max_grid, stream)
+                            : launch<false>(B, share, max_grid, stream);
 }
+
+// The warps anyseq_band launches for a band of h rows and n columns in
+// `mode` with these `share` and `max_grid`, on the current card.
+extern "C" int anyseq_band_grid(int h, int n, int mode, int share,
+                                int max_grid) {
+  const int strips = strips_of(n);
+  return mode == MODE_LOCAL ? grid_of<true>(h, strips, share, max_grid)
+                            : grid_of<false>(h, strips, share, max_grid);
+}
+
+#ifdef ANYSEQ_HOST_EMU
+// The emulated card's SMs and CTAs an SM, for the tests of grid_of.
+extern "C" void anyseq_emu_set_card(int sms, int ctas_per_sm) {
+  emu_card_sms = sms;
+  emu_card_ctas_per_sm = ctas_per_sm;
+}
+#endif
 
 // Peer access from `device` to `peer`'s memory, so that K10 on `device`
 // writes the halo that lives on `peer`. Enabled once; enabling it again

@@ -7,14 +7,18 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 
 1. Device and build: the card's name, power limit and top SM clock
    (nvidia-smi), and the nvcc build of the kernels from
-   ``anyseq_tpu_torch/kernels/csrc/``.
+   ``anyseq_tpu_torch/kernels/csrc/``; beside it, K8/K10's ``band.cu``
+   built once more with ``-Xptxas -v`` (registers, spills) and its SASS
+   searched for the DPX instructions of its chain (VIADDMNMX, VIMNMX3).
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K10 and
    K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
    over every card where there are several: two chained bands in 3
    modes and under start_gap, and a subject that leaves the last rank
-   without columns; K7's affine codes at 4,096 problems.
+   without columns; K7's affine codes at 4,096 problems. K8 and K10
+   (linear) also with 1, 7 and strips - 1 warps beside the grid they
+   choose, and K8 from a boundary a little above SCORE_MIN.
 3. Five main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
@@ -59,6 +63,8 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    whole 1 Mbp band (linear and affine) against the same band run as a
    chain of CUT_ROWS-row bands; each rank's first band of the mesh
    scores alone, and cut to CUT_ROWS rows against the plain version.
+   K8 alone on one 262,144-row band at 1,000,000 and 4,600,000 columns,
+   3 runs each: median, spread, grid and share of its bound.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
    SMs x 64 int32 lanes x the top SM clock), the card's line, and the
@@ -148,6 +154,12 @@ BAND_BP = 40_000
 COLL_ROWS = 700                  # phase 2's collective bands
 COLL_BP = 30_000
 CUT_ROWS = 2_048                 # phase 4's cut of a genome band
+# the 4.6 Mbp global score of the seeded pair (SEED), as every run of this
+# script has given it since the genome path was added
+ECOLI_SCORE = 7_807_881
+# the kernels whose core was redesigned for the H100: csrc/band_sweep.cuh
+REDESIGNED = {"band": "csrc/band_sweep.cuh",
+              "band_collective": "csrc/band_sweep.cuh"}
 # a linear construction long enough that its 4-part level has parts
 # taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
 HB_GENOME_BP = 2_200_000
@@ -792,7 +804,9 @@ def phase2_band(rng, errors):
     closed-form boundary, and its bottom row must equal the unchained
     K1 / K5 sweep of those rows; the second starts from that sweep's last
     row (affine: with the first band's F row), as a chain hands it on,
-    and runs once more with 7 CTAs for its strips."""
+    and runs once more with 7 CTAs for its strips (linear: with 1, 7 and
+    strips - 1 warps); then a linear band from a boundary near
+    SCORE_MIN."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.engine import affine, linmem
     from anyseq_tpu_torch.kernels import _build, band, wavefront
@@ -843,10 +857,41 @@ def phase2_band(rng, errors):
                             lambda: plain(*second))
         errors[name] = max(errors.get(name, 0), err)
         strips = -(-n // wavefront.STRIP)
-        err = max_abs_err(kernel(lib, *second, grid=7), plain(*second))
-        check(err == 0, f"{tag} band 1 with 7 CTAs for {strips} strips")
-        print(f"{tag} band 1 with 7 CTAs for {strips} strips equal=True",
-              flush=True)
+        want = plain(*second)
+        # K8 affine's grid counts CTAs of two warps, K8's warps
+        grids, unit = ([7], "CTAs") if is_affine else ([1, 7, strips - 1],
+                                                      "warps")
+        for grid in grids:
+            err = max_abs_err(kernel(lib, *second, grid=grid), want)
+            check(err == 0, f"{tag} band 1 with {grid} {unit} for {strips} "
+                            f"strips")
+        chosen = ("" if is_affine else f" (chosen: "
+                  f"{lib.anyseq_band_grid(h, n, band_mode(mode), 1, 0)})")
+        print(f"{tag} band 1 with {grids} {unit} for {strips} strips "
+              f"equal=True{chosen}", flush=True)
+    # K8 from a boundary a little above SCORE_MIN (no sum leaves int32's
+    # range), its own generator so that the main paths' pairs stay those
+    # of every earlier run
+    from anyseq_tpu_torch.core.types import SCORE_MIN
+    near = np.random.default_rng(SEED + 1)
+    base = SCORE_MIN + 2**20
+    row = torch.from_numpy(base + near.integers(0, 500, n).astype(np.int32))
+    col = torch.from_numpy(base + near.integers(0, 500, h).astype(np.int32))
+    for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
+        args = (q[:h], s, row.to(dev), base + 3, col.to(dev), mode,
+                LinearScoring())
+        err = max_abs_err(band.launch(lib, *args), band.plain(*args))
+        check(err == 0, f"K8 near SCORE_MIN {mode.value}")
+        errors["band"] = max(errors.get("band", 0), err)
+        print(f"phase2 K8 band {mode.value} {h}x{n} from a boundary near "
+              f"SCORE_MIN equal=True", flush=True)
+
+
+def band_mode(mode) -> int:
+    """The C entry points' code of a Mode."""
+    from anyseq_tpu_torch.kernels._sweep import MODE_CODE
+
+    return MODE_CODE[mode]
 
 
 @contextlib.contextmanager
@@ -887,11 +932,25 @@ def rings():
     return out
 
 
+@contextlib.contextmanager
+def collective_grid(grid: int):
+    """K10 (linear) launches made with `grid` warps inside the block."""
+    from anyseq_tpu_torch.kernels import band
+
+    real = band.launch_collective
+    band.launch_collective = lambda *a, **k: real(*a, **{**k, "grid": grid})
+    try:
+        yield
+    finally:
+        band.launch_collective = real
+
+
 def phase2_collective(rng, errors):
     """K10 and K10 affine against their plain versions on the card, over
     each of rings(): two chained bands of COLL_ROWS rows of a related pair
-    COLL_BP wide, in 3 modes (and affine GLOBAL start_gap); then the same
-    rows against a subject that leaves the last rank without columns."""
+    COLL_BP wide, in 3 modes (and affine GLOBAL start_gap), K10 linear
+    also with 1, 7 and strips - 1 warps a rank; then the same rows against
+    a subject that leaves the last rank without columns."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.dist import collective
     from anyseq_tpu_torch.kernels._sweep import STRIP
@@ -921,16 +980,29 @@ def phase2_collective(rng, errors):
                         q, s, mode, sc, collective.ranks_of(ring), COLL_ROWS,
                         sg)()
 
-                def plain():
-                    with plain_collectives():
-                        return run()
+                memo = {}
 
-                err, _, _ = compare(
-                    f"phase2 K10 {name} {mode.value} start_gap={sg} over "
-                    f"{K} ranks {'+'.join(ring)} ({active} with columns, "
-                    f"{bands} bands) {q.numel()}x{s.numel()}", run, plain,
-                    reps=2)
+                def plain():
+                    # once a case: the grid checks below reuse it
+                    if not memo:
+                        with plain_collectives():
+                            memo["out"] = run()
+                    return memo["out"]
+
+                label = (f"phase2 K10 {name} {mode.value} start_gap={sg} "
+                         f"over {K} ranks {'+'.join(ring)} ({active} with "
+                         f"columns, {bands} bands) {q.numel()}x{s.numel()}")
+                err, _, _ = compare(label, run, plain, reps=2)
                 errors[name] = max(errors.get(name, 0), err)
+                if name == "band_collective":
+                    want, strips = plain(), Nl // STRIP
+                    grids = sorted({1, 7, max(strips - 1, 1)})
+                    for grid in grids:
+                        with collective_grid(grid):
+                            err = max_abs_err(run(), want)
+                        check(err == 0, f"{label} with {grid} warps a rank")
+                    print(f"{label} with {grids} warps a rank equal=True",
+                          flush=True)
 
 
 def phase2_swarm_affine_codes(rng, errors):
@@ -955,6 +1027,45 @@ def phase2_swarm_affine_codes(rng, errors):
         print(f"phase2 K7 affine codes {mode.value} bound_ms={b_ms:.4f} "
               f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
         errors["swarm_preds"] = max(errors.get("swarm_preds", 0), err)
+
+
+def band_build_report():
+    """Start nvcc on K8/K10's source with ``-Xptxas -v`` (beside the main
+    build); returns a function that waits for it, prints band_kernel's
+    registers and spills, and checks that its SASS holds the chain's DPX
+    instructions."""
+    import tempfile
+
+    from anyseq_tpu_torch.kernels import _build
+
+    tmp = tempfile.TemporaryDirectory()
+    obj = os.path.join(tmp.name, "band.o")
+    nvcc = _build._nvcc()
+    proc = subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+         str(_build.CSRC / "band.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def report():
+        with tmp:
+            out = proc.communicate()[0]
+            check(proc.returncode == 0, f"nvcc -Xptxas -v band.cu:\n{out}")
+            lines = out.splitlines()
+            for k, line in enumerate(lines):
+                if "band_kernel" in line and "Compiling" in line:
+                    used = [x.strip() for x in lines[k + 1:k + 4]
+                            if "Used" in x or "spill" in x]
+                    print(f"phase1 ptxas band_kernel "
+                          f"{'LOCAL' if 'ILb1' in line else 'other modes'}: "
+                          f"{'; '.join(used)}", flush=True)
+            sass = subprocess.run(
+                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                 obj], capture_output=True, text=True, check=True).stdout
+            counts = {op: sass.count(op) for op in ("VIADDMNMX", "VIMNMX3")}
+            print(f"phase1 SASS band.cu DPX instructions {json.dumps(counts)}",
+                  flush=True)
+            check(all(counts.values()), "band.cu's SASS holds DPX")
+    return report
 
 
 def sm_clock_of() -> float:
@@ -1104,6 +1215,8 @@ def phase3_genome(rng, kept, counts):
                 results[call], deltas[call] = out, delta
                 GENOME_WALLS[call] = wall
                 if call is ecoli_6:
+                    check(score == ECOLI_SCORE,
+                          f"4.6 Mbp global score {score} == {ECOLI_SCORE}")
                     bands = -(-len(q) // band.M_BAND)
                     check(delta == {"band": bands},
                           f"4.6 Mbp global ran {bands} K8 bands alone "
@@ -1393,8 +1506,9 @@ def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
     the 1 Mbp genome scores, cut to CUT_ROWS rows (the times reported in
     the JSON line); each whole 1 Mbp band against itself run as a chain
     of CUT_ROWS-row bands; then the first whole band of the 1 Mbp and 4.6
-    Mbp global scores alone, the kernel's time and its bound (the 1 Mbp
-    ones into `whole`, for the JSON line)."""
+    Mbp global scores alone, the kernel's time (K8: the median of 3, with
+    their spread and its grid) and its bound (the 1 Mbp ones into
+    `whole`, for the JSON line)."""
     score_1 = ("align_score", GENOME_BP, "global", "LinearScoring")
     score_2 = ("align_score", GENOME_BP, "local", "AffineScoring")
     ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
@@ -1425,14 +1539,24 @@ def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
               f"{args[1].numel()}x{args[2].numel()} == a chain of "
               f"{-(-args[1].numel() // CUT_ROWS)} bands of {CUT_ROWS} rows",
               flush=True)
+    from anyseq_tpu_torch.kernels import _build
+
+    lib = _build.library()
     for call, fn in ((score_1, "band"), (score_2, "band_affine"),
                      (ecoli_6, "band")):
         args = first_band(call, fn)
-        ms = cuda_ms(lambda: launcher(fn)(*args), 1)
+        runs = [cuda_ms(lambda: launcher(fn)(*args), 1)
+                for _ in range(3 if fn == "band" else 1)]
+        ms = float(np.median(runs))
         cells = args[1].numel() * args[2].numel()
         b_ms, by = bound(fn, args, sm_clock_mhz)
+        grid = (lib.anyseq_band_grid(args[1].numel(), args[2].numel(),
+                                     band_mode(args[-2]), 1, 0)
+                if fn == "band" else "as before")
         print(f"phase4 {fn} alone {' '.join(map(str, call))} first band "
               f"{args[1].numel()}x{args[2].numel()} kernel_ms={ms:.3f} "
+              f"runs_ms={[round(r, 3) for r in runs]} "
+              f"spread={(max(runs) - min(runs)) / ms:.3f} grid={grid} "
               f"gcups={cells / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
               f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
         if call is not ecoli_6:
@@ -1577,9 +1701,11 @@ def main() -> int:
 
     from anyseq_tpu_torch.kernels import _build
 
+    report = band_build_report()
     build = _build.build()
     print(f"phase1 build: {build.path.name} in {build.seconds:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    report()
 
     rng = np.random.default_rng(SEED)
     timings, errors, kept, whole = {}, {}, [], {}
@@ -1609,6 +1735,8 @@ def main() -> int:
         for name, (src, rep, _) in KERNELS.items()
     ]
     for k in kernels:
+        if k["name"] in REDESIGNED:
+            k.update(redesigned=True, core=REDESIGNED[k["name"]])
         if k["name"] in whole:
             shape, ms, b_ms = whole[k["name"]]
             k.update(whole_band=shape, whole_band_ms=round(ms, 4),

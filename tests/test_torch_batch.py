@@ -279,7 +279,9 @@ def test_plain_k7_affine_codes_match_swarm_kernel(mode):
     """K7's affine 4-bit codes (the plain version) against the JAX
     package's swarm kernel in interpret mode (score_pairs_swarm_preds):
     the dense codes of every cell within each problem's lengths, mixed
-    start-gap flags."""
+    start-gap flags. At this scoring (gap_open and gap_extend both < 0)
+    they are equal everywhere; where one of them is 0 they differ in
+    column 0 of start-gap problems (test_plain_k7_affine_codes_column0)."""
     rng = np.random.default_rng(8)
     B, M, N = 19, 30, 40
     q, s, ms, ns = _batch(rng, B, M, N)
@@ -296,6 +298,47 @@ def test_plain_k7_affine_codes_match_swarm_kernel(mode):
     # nothing past a problem's lengths
     assert not codes[0, ms[0]:].any() and not codes[0, :, ns[0]:].any()
 
+
+
+@pytest.mark.parametrize("params", [(1, -6, -4, 0), (2, -1, 0, -1)],
+                         ids=str)
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_k7_affine_codes_column0(mode, params):
+    """Where gap_open or gap_extend is 0, K7's affine codes keep the JAX
+    package's user path and leave its swarm kernel in one place. K7 (the
+    plain version) starts E[i][-1] of a start-gap problem at
+    NEG + go - ge; the XLA pred sweep of the Myers-Miller terminal
+    stripes (preds_batch_affine) gives the same codes, GLOBAL, everywhere.
+    The swarm kernel (score_pairs_swarm_preds, interpret mode) starts
+    that E at NEG, so its PE bit (bit 2) of column 0 differs in
+    start-gap GLOBAL problems, and nothing else does, in any mode."""
+    rng = np.random.default_rng(9)
+    B, M, N = 12, 14, 17
+    q, s, ms, ns = _batch(rng, B, M, N)
+    sg = rng.integers(0, 2, B).astype(bool)
+    sg[:2] = True, False
+    jsc, sc = (anyseq_tpu.AffineScoring(*params),
+               pt.AffineScoring(*params))
+    got = swarm.score_pairs_swarm(*_t(q, s, ms, ns), mode, sc,
+                                  torch.from_numpy(sg), emit_preds=True)
+    codes = unpack_codes4(got["preds"], N).numpy()
+    kernel = np.asarray(jax_swarm.score_pairs_swarm_preds(
+        q, s, ms, ns, mode, jsc, sgaps=sg, interpret=True)["preds"])
+    xla = (np.asarray(jax_batch.preds_batch_affine(
+        jnp.asarray(q), jnp.asarray(s), jnp.asarray(ms), jnp.asarray(ns),
+        jsc, jnp.asarray(sg))[0]) if mode == "global" else None)
+    differ = 0
+    for b in range(B):
+        mine = codes[b, :ms[b], :ns[b]]
+        if xla is not None:
+            np.testing.assert_array_equal(mine, xla[b, :ms[b], :ns[b]])
+        diff = mine ^ kernel[b, :ms[b], :ns[b]]
+        if sg[b]:
+            differ += int(diff[:, 0].any())
+            diff[:, 0] &= ~np.uint8(4)
+        assert not diff.any(), b
+    # the departure shows: GLOBAL start-gap problems differ in PE at j = 0
+    assert (differ > 0) == (mode == "global")
 
 def test_cpu_batches_launch_no_kernel():
     for k in _build.launches:

@@ -367,3 +367,198 @@ def test_band_collective_kernel_local_tie(emu_collective, sc):
             if isinstance(sc, AffineScoring)
             else wavefront.plain(q, s, Mode.LOCAL, sc))
     assert torch.equal(got["best"], want["best"])
+
+
+# --- K8 / K10 linear: the warp strip core (csrc/band_sweep.cuh) ---
+
+_DPX_EDGES = [-2**31 + 1, -2**31 + 5, -2**30, -2**29 - 3, -2**29, -1000,
+              -1, 0, 1, 7, 2**29, 2**30 + 11, 2**31 - 1]
+
+
+def _wrap32(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+_DPX = {
+    "__viaddmax_s32": lambda a, b, c: max(_wrap32(a + b), c),
+    "__viaddmax_s32_relu": lambda a, b, c: max(_wrap32(a + b), c, 0),
+    "__vimax3_s32": lambda a, b, c: max(a, b, c),
+}
+
+
+@pytest.fixture(scope="module")
+def dpx_table(tmp_path_factory):
+    """Each emulated DPX intrinsic of host_emu.h on every triple of
+    _DPX_EDGES, as printed by a small program built against it."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build the host emulation")
+    tmp = tmp_path_factory.mktemp("dpx")
+    edges = ", ".join(f"{x}" for x in _DPX_EDGES)
+    calls = "\n".join(
+        f'  for (int a : e) for (int b : e) for (int c : e) '
+        f'std::printf("{name} %d %d %d %d\\n", a, b, c, {name}(a, b, c));'
+        for name in _DPX)
+    src = tmp / "dpx.cpp"
+    src.write_text(f'#include "host_emu.h"\nint main() {{\n'
+                   f'  const int e[] = {{{edges}}};\n{calls}\n}}\n')
+    exe = tmp / "dpx"
+    subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-DANYSEQ_HOST_EMU",
+                    "-I", str(_build.CSRC), "-o", str(exe), str(src)],
+                   check=True)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True).stdout
+    table = {}
+    for line in out.splitlines():
+        name, *vals = line.split()
+        table.setdefault(name, []).append(tuple(map(int, vals)))
+    return table
+
+
+@pytest.mark.parametrize("name", list(_DPX))
+def test_emulated_dpx_intrinsics(dpx_table, name):
+    """The host emulation's DPX intrinsics are their formulas, the add
+    wrapping in 32 bits as on the card, at SCORE_MIN, -2**29, 0 and large
+    positives."""
+    rows = dpx_table[name]
+    assert len(rows) == len(_DPX_EDGES) ** 3
+    for a, b, c, got in rows:
+        assert got == _DPX[name](a, b, c), (name, a, b, c)
+
+
+@pytest.fixture
+def emu_card(emu_lib):
+    """Sets the emulated card's SMs and CTAs an SM (restored after)."""
+    import ctypes
+
+    fn = emu_lib.anyseq_emu_set_card
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], None
+    yield fn
+    fn(1, 1)
+
+
+@pytest.mark.parametrize("sms,ctas,h,n,share,max_grid,want", [
+    (132, 4, 262_144, 1_000_000, 1, 0, 977),   # every strip at once
+    (132, 3, 262_144, 4_600_000, 1, 0, 1498),  # 4,493 strips in 3 rounds
+    (132, 4, 262_144, 4_600_000, 1, 0, 1498),
+    (132, 4, 262_144, 2_300_000, 2, 0, 749),   # two ranks share the card
+    (132, 4, 262_144, 500_000, 2, 0, 489),
+    (132, 4, 4096, 1_000_000, 1, 0, 66),       # ~67 strips busy at once
+    (132, 4, 700, 30_000, 2, 0, 10),           # 30 strips, 13 busy: 3 x 10
+    (132, 4, 262_144, 4_600_000, 1, 462, 462),   # the override
+    (132, 4, 4096, 4_600_000, 2, 5000, 1056),  # held to the rank's share
+    (4, 2, 2000, 20_000, 1, 0, 20),
+    (1, 1, 2000, 30_000, 1, 0, 4),             # 30 strips, 4 warps, 8 rounds
+    (1, 1, 2000, 3000, 1, 1, 1),
+])
+def test_band_grid_rule(emu_card, emu_lib, sms, ctas, h, n, share, max_grid,
+                        want):
+    """anyseq_band_grid: every strip at once where the card's share holds
+    them all (CTAs of 4 warps) and the band keeps them busy (a strip
+    starts 63 steps after its left neighbour and runs h + 31), else as
+    many warps as it holds or the band keeps busy, over equal rounds;
+    max_grid overrides within the share."""
+    emu_card(sms, ctas)
+    for mode in Mode:
+        got = emu_lib.anyseq_band_grid(h, n, band.MODE_CODE[mode], share,
+                                       max_grid)
+        assert got == want, mode
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("grid", [1, 2, 64])
+@pytest.mark.parametrize("i0,h,n", [(9, 7, 2100), (40, 45, 3000),
+                                    (33, 32, 1024), (5, 97, 2049)])
+def test_band_kernel_warp_core(emu_card, emu_lib, i0, h, n, grid, mode):
+    """K8 on the warp core: fewer rows than lanes, rows not a multiple of
+    the 32-row publish chunk, ragged last strips (and a full one, n =
+    1024), with 1, 2 and more warps than strips (an emulated card of 4
+    SMs x 16 CTAs: a CTA's 4 warps run at once, each waiting on the strip
+    to its left, and CTAs one after another)."""
+    emu_card(4, 16)
+    rng = np.random.default_rng(i0 * h + n + grid)
+    q, s = _seq(rng, i0 + h), _seq(rng, n)
+    _check_band(emu_lib, _band_case(q, s, i0, mode, SC), grid=grid)
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+def test_band_kernel_near_score_min(emu_lib, mode):
+    """A band whose top row, corner and left column lie a little above
+    SCORE_MIN (no sum leaves int32's range): the warp core's DPX chain
+    gives the plain version's values."""
+    from anyseq_tpu_torch.core.types import SCORE_MIN
+
+    rng = np.random.default_rng(12)
+    h, n = 70, 2500
+    q, s = _seq(rng, h), _seq(rng, n)
+    base = SCORE_MIN + 2**20
+    row = torch.from_numpy(base + rng.integers(0, 500, n).astype(np.int32))
+    col = torch.from_numpy(base + rng.integers(0, 500, h).astype(np.int32))
+    _check_band(emu_lib, (q, s, row, base + 3, col, mode, SC), grid=0)
+
+
+def _planted(plants, m=80, n=2200):
+    """A query of A/C and a subject of G/T (no symbol in common) with each
+    (string, query end, subject end) planted: under match 1 and a
+    mismatch and gap of -100, LOCAL scores a planted string's length at
+    its two ends and nothing longer elsewhere."""
+    rng = np.random.default_rng(3)
+    q = np.frombuffer(b"AC", np.uint8)[rng.integers(0, 2, m)].copy()
+    s = np.frombuffer(b"GT", np.uint8)[rng.integers(0, 2, n)].copy()
+    for text, qi, sj in plants:
+        b = np.frombuffer(text, np.uint8)
+        q[qi - len(b) + 1:qi + 1] = b
+        s[sj - len(b) + 1:sj + 1] = b
+    return torch.from_numpy(q), torch.from_numpy(s)
+
+
+_X, _Y = b"ACGTTGCAAGTC", b"TTGACCAGTGCA"
+
+
+@pytest.mark.parametrize("plants,want", [
+    # one row, two strips (warps): the earlier column wins
+    ([(_X, 40, 1500), (_X, 40, 700)], (40, 700)),
+    # an earlier row in the later strip wins over a later row before it
+    ([(_X, 40, 1500), (_Y, 60, 700)], (40, 1500)),
+    # one warp: one row across lanes, then an earlier row in a later lane
+    ([(_X, 50, 900), (_X, 50, 300)], (50, 300)),
+    ([(_X, 50, 100), (_Y, 45, 900)], (45, 900)),
+])
+def test_band_kernel_local_ties_lanes_warps(emu_lib, plants, want):
+    """Equal LOCAL maxima across the lanes of one warp and across warps
+    (strips): the first in row-major order, i counted from the band's
+    top row (i0 = 20)."""
+    sc = LinearScoring(1, -100, -100)
+    q, s = _planted(plants)
+    i0 = 20
+    args = _band_case(q, s, i0, Mode.LOCAL, sc)
+    got = band.launch(emu_lib, *args)
+    assert got["best"].tolist() == [12, want[0] - i0, want[1]]
+    for k, v in band.plain(*args).items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("k,m,n,band_rows", [(2, 70, 900, 33),
+                                             (3, 45, 2000, 33),
+                                             (3, 100, 2000, None)])
+def test_band_collective_kernel_empty_last_rank(emu_collective, k, m, n,
+                                                band_rows, mode):
+    """K10 on the warp core over 2 and 3 ranks whose last rank has no
+    columns (not launched), bands of 33 rows (chained corners, rows not a
+    multiple of the 32-row chunk) and one band."""
+    from anyseq_tpu_torch.dist import collective
+    from anyseq_tpu_torch.dist.mesh import Mesh
+
+    rng = np.random.default_rng(k * m + n)
+    q, s = _seq(rng, m), _seq(rng, n)
+    _, active, _, bands = collective.geometry(m, n, k, band_rows)
+    assert active == k - 1
+    before = _build.launches["band_collective"]
+    got = collective.score_pair_collective(q, s, mode, SC,
+                                           Mesh(["cpu"] * k, ("sp",)),
+                                           band_rows=band_rows)
+    assert _build.launches["band_collective"] - before == active * bands
+    want = wavefront.plain(q, s, mode, SC)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -185,8 +185,10 @@ def test_every_kernel_has_a_launch_count():
         "wavefront_affine_score", "wavefront_affine_preds",
         "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
         "band", "band_affine", "band_collective", "band_collective_affine"}
-    # one entry a source, and the peer-access switch of the collective
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 1 == 10
+    # one launching entry a source, the peer-access switch of the
+    # collective, and the grid query of K8/K10 (which launches nothing)
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 2 == 11
+    assert "anyseq_band_grid" in _build.SIGNATURES
 
 
 def test_wrappers_check_types():

@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
 """K8 (``csrc/band.cu``) of two checkouts on one CUDA card, in turns.
 
-    python3 tools/k8_ab.py --parent DIR     # DIR: an unpacked older tree
+    python3 tools/k8_ab.py --parent DIR [--check] [--rows 262144]
+                           [--reps 3] [--sweep 0,all,8/sm,462]
 
-Times one band of 262,144 rows of a global linear score, as K8 over the
-whole width (1,000,000 and 4,600,000 columns, seeded random DNA), with
-the kernels of the older tree at DIR and of this tree, in turns (older,
-this, this, older; each a process of its own that builds its tree's
-kernels), and holds the outputs of all four equal. Then times this
-tree's K8 at 4,600,000 columns with its grid capped at a few sizes (the
-K10 ranks that share a card each run a capped grid). Prints one JSON
-line a run, and the medians.
+DIR is an unpacked older tree. Times one band of `--rows` rows (262,144)
+of a global linear score, as K8 over the whole width (1,000,000 and
+4,600,000 columns, seeded random DNA), with the kernels of the older
+tree at DIR (at its own grid and at 462) and of this tree (at its own
+grid), in turns (older, this, this, older; each a process of its own
+that builds its tree's kernels), and holds the outputs of all of them
+equal. Then times this tree's K8 at 4,600,000 columns over the grids of
+`--sweep`: 0 is the grid ``band.cu`` chooses, a number caps the grid,
+`N/sm` runs N warps an SM spread over equal rounds, and `all` runs every
+strip at once where the card holds them (the K10 ranks that share a
+card each run a capped grid). Prints one JSON line a run, with the grid
+each launch used where the tree's library reports it, and the medians
+with their spreads and the card's name and power limit. A grid counts
+CTAs of two warps in trees before the warp strip core
+(``csrc/band_sweep.cuh``), warps since.
+
+`--check` first holds this tree's K8 and K10 to their plain versions as
+``chip_smoke.py`` phase 2 does (3 modes, several grids, 2 and 4 ranks of
+cuda:0), and prints ptxas's registers and spills of ``band.cu`` and the
+DPX instructions (VIADDMNMX, VIMNMX3) in its SASS.
 
     python3 tools/k8_ab.py --tree DIR --cols 1000000,4600000 [--grids 0]
 
 is one such run: DIR's kernels (default: this tree), `--reps` times each
-width and grid (0: as many CTAs as fit on the card).
+width and grid.
 """
 from __future__ import annotations
 
@@ -24,13 +37,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = 262_144
 WIDTHS = (1_000_000, 4_600_000)
-GRIDS = (0, 1320, 924, 660, 462, 264)
+SWEEP = "0,all,4/sm,8/sm,12/sm,16/sm,1320,924,660,462,264"
+OLDER_GRIDS = "0,462"       # the older tree's own grid, and its best cap
 
 
 def smi(query: str) -> str:
@@ -39,7 +54,18 @@ def smi(query: str) -> str:
                           text=True, check=True).stdout.strip()
 
 
-def run(tree: str, widths, grids, reps: int) -> None:
+def grid_size(spec: str, strips: int, sms: int, grid_of, rows: int,
+              n: int) -> int:
+    """The `grid` argument that a `--grids` entry stands for."""
+    if spec == "all":
+        return grid_of(rows, n, 0, 1, strips)
+    if spec.endswith("/sm"):
+        rounds = -(-strips // (int(spec[:-3]) * sms))
+        return -(-strips // rounds)
+    return int(spec)
+
+
+def run(tree: str, rows: int, widths, grids, reps: int) -> None:
     """One tree's K8 bands; one JSON line each width and grid."""
     sys.path.insert(0, tree)
     import torch
@@ -51,19 +77,25 @@ def run(tree: str, widths, grids, reps: int) -> None:
     if not band.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {band.__file__}, not {tree}'s")
     lib = _build.library()
+    grid_of = getattr(lib, "anyseq_band_grid", None)   # absent before
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     sc, mode = LinearScoring(), Mode.GLOBAL
     rng = np.random.default_rng(0)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
-    q = as_tensor(bytes(alpha[rng.integers(0, 4, ROWS)]), "cuda")
+    q = as_tensor(bytes(alpha[rng.integers(0, 4, rows)]), "cuda")
     s_all = as_tensor(bytes(alpha[rng.integers(0, 4, max(widths))]), "cuda")
-    corner, col = linmem.left_col(mode, sc, 0, ROWS, q.device)
+    corner, col = linmem.left_col(mode, sc, 0, rows, q.device)
     warm = s_all[:100_000].contiguous()
     band.launch(lib, q, warm, linmem.top_row(mode, sc, warm.numel(),
                                              q.device), corner, col, mode, sc)
     for n in widths:
         s = s_all[:n].contiguous()
         row = linmem.top_row(mode, sc, n, q.device)
-        for grid in grids:
+        strips = -(-n // 1024)
+        for spec in grids:
+            if not grid_of and (spec == "all" or spec.endswith("/sm")):
+                continue
+            grid = grid_size(spec, strips, sms, grid_of, rows, n)
             runs, check = [], None
             for _ in range(reps):
                 start = torch.cuda.Event(enable_timing=True)
@@ -79,26 +111,63 @@ def run(tree: str, widths, grids, reps: int) -> None:
                          int(out["last_col"].long().sum()),
                          *out["best"].tolist()]
                 del out
-            print(json.dumps({"tree": tree, "rows": ROWS, "cols": n,
-                              "grid": grid, "runs_ms": runs,
+            used = grid_of(rows, n, 0, 1, grid) if grid_of else None
+            print(json.dumps({"tree": tree, "rows": rows, "cols": n,
+                              "grid": spec, "grid_used": used,
+                              "runs_ms": runs,
                               "median_ms": float(np.median(runs)),
                               "check": check,
                               "after": smi("clocks.sm,power.draw,"
                                            "temperature.gpu")}), flush=True)
 
 
-def ab(parent: str, reps: int) -> int:
-    """Older, this, this, older; then this tree's grid caps."""
+def check() -> int:
+    """ptxas and SASS of this tree's band.cu; its K8 and K10 against
+    their plain versions (chip_smoke.py phase 2's band and collective
+    checks)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from anyseq_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = os.path.join(tmp, "band.so")
+        out = subprocess.run(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib,
+             str(_build.CSRC / "band.cu")], capture_output=True, text=True)
+        if out.returncode:
+            print(f"k8_ab: nvcc failed:\n{out.stderr}", file=sys.stderr)
+            return 1
+        ptxas = [x.split(":", 1)[-1].strip()
+                 for x in (out.stdout + out.stderr).splitlines()
+                 if "Used" in x or "spill" in x]
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib],
+            capture_output=True, text=True, check=True).stdout
+    dpx = {op: sass.count(op) for op in ("VIADDMNMX", "VIMNMX3")}
+    print(f"band.cu: ptxas {ptxas} SASS DPX {json.dumps(dpx)}", flush=True)
+    rng = np.random.default_rng(cs.SEED)
+    errors: dict = {}
+    cs.phase2_band(rng, errors)
+    cs.phase2_collective(rng, errors)
+    print(f"check: K8 and K10 equal to their plain versions {errors}",
+          flush=True)
+    return 0 if all(dpx.values()) else 1
+
+
+def ab(parent: str, rows: int, reps: int, sweep: str) -> int:
+    """Older, this, this, older; then this tree's grid sweep."""
     print(smi("name,power.limit"), flush=True)
     lines = []
     cols = ",".join(map(str, WIDTHS))
-    plan = [(parent, "0"), (ROOT, "0"), (ROOT, "0"), (parent, "0"),
-            (ROOT, ",".join(map(str, GRIDS)))]
-    for tree, grids in plan:
+    plan = [(parent, cols, OLDER_GRIDS), (ROOT, cols, "0"),
+            (ROOT, cols, "0"), (parent, cols, OLDER_GRIDS),
+            (ROOT, str(WIDTHS[-1]), sweep)]
+    for tree, widths, grids in plan:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--tree", tree,
-             "--cols", cols if grids == "0" else str(WIDTHS[-1]),
-             "--grids", grids, "--reps", str(reps)],
+             "--rows", str(rows), "--cols", widths, "--grids", grids,
+             "--reps", str(reps)],
             capture_output=True, text=True)
         sys.stdout.write(out.stdout)
         if out.returncode:
@@ -109,15 +178,19 @@ def ab(parent: str, reps: int) -> int:
     if len(checks) != len({x["cols"] for x in lines}):
         print(f"k8_ab: outputs differ: {sorted(checks)}", file=sys.stderr)
         return 1
+    print(f"medians ({smi('name,power.limit')}):")
     for n in WIDTHS:
-        for grid in GRIDS:
+        for spec in dict.fromkeys(x["grid"] for x in lines):
             for tree, name in ((parent, "older"), (ROOT, "this")):
-                runs = [r for x in lines if x["tree"] == tree
-                        and x["cols"] == n and x["grid"] == grid
-                        for r in x["runs_ms"]]
+                got = [x for x in lines if x["tree"] == tree
+                       and x["cols"] == n and x["grid"] == spec]
+                runs = [r for x in got for r in x["runs_ms"]]
                 if runs:
-                    print(f"K8 {ROWS}x{n} grid={grid} {name} tree: "
-                          f"median_ms={float(np.median(runs)):.3f} "
+                    med = float(np.median(runs))
+                    print(f"K8 {rows}x{n} grid={spec} "
+                          f"({got[0]['grid_used']}) {name} tree: "
+                          f"median_ms={med:.3f} "
+                          f"spread={(max(runs) - min(runs)) / med:.3f} "
                           f"runs={runs}", flush=True)
     print("k8_ab ok: outputs equal")
     return 0
@@ -126,15 +199,20 @@ def ab(parent: str, reps: int) -> int:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent")
+    p.add_argument("--check", action="store_true")
     p.add_argument("--tree", default=ROOT)
+    p.add_argument("--rows", type=int, default=ROWS)
     p.add_argument("--cols", default=",".join(map(str, WIDTHS)))
     p.add_argument("--grids", default="0")
-    p.add_argument("--reps", type=int, default=2)
+    p.add_argument("--sweep", default=SWEEP)
+    p.add_argument("--reps", type=int, default=3)
     a = p.parse_args()
+    if a.check and check():
+        return 1
     if a.parent:
-        return ab(os.path.abspath(a.parent), a.reps)
-    run(os.path.abspath(a.tree), [int(x) for x in a.cols.split(",")],
-        [int(x) for x in a.grids.split(",")], a.reps)
+        return ab(os.path.abspath(a.parent), a.rows, a.reps, a.sweep)
+    run(os.path.abspath(a.tree), a.rows, [int(x) for x in a.cols.split(",")],
+        a.grids.split(","), a.reps)
     return 0
 
 
