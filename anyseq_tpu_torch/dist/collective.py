@@ -16,11 +16,11 @@ process drives every rank, as ``shard_map`` does there:
   ``kernels.band.M_MAX`` query rows, else ``band.M_BAND``-row bands), each
   one K10 launch on the rank's device and its own stream. Its first strip
   reads its left column from a :class:`kernels.band.Halo` on its device,
-  which the left rank's last strip writes 64 rows at a time (through peer
+  which the left rank's last strip writes 32 rows at a time (through peer
   access from another card) and raises one flag a band for; the corner of
   band b > 0 is that halo's row i0 - 1, read on the device. The ranks'
   launches are enqueued band by band in rank order, so no launch waits on
-  one enqueued after it, and ranks that share a card split its CTAs so
+  one enqueued after it, and ranks that share a card split its warps so
   that all of them are resident at once;
 * rank 0 starts from the closed-form left column, every rank from the
   closed-form top row of its columns (affine: the NEG F row, and the

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
            "walk_affine.cu", "lastcols_affine.cu", "swarm.cu", "band.cu",
            "band_affine.cu")
-HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh", "band_sweep.cuh")
+HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh", "band_sweep.cuh",
+           "band_sweep_affine.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -60,6 +61,8 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "anyseq_band_grid": (_I, _I, _I, _I, _I),
+    "anyseq_band_affine_grid": (_I, _I, _I, _I, _I),
+    "anyseq_band_affine_strip": (),
     "anyseq_enable_peer": (_I, _I),
 }
 
@@ -78,11 +81,17 @@ _loaded: Build | None = None
 
 def load(path) -> ctypes.CDLL:
     """Load a kernel library and declare its C signatures."""
+    from anyseq_tpu_torch.kernels import band
+
     lib = ctypes.CDLL(str(path))
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
+    if lib.anyseq_band_affine_strip() != band.AFFINE_STRIP:
+        raise RuntimeError(f"{path}: K8 affine strips of "
+                           f"{lib.anyseq_band_affine_strip()} columns, "
+                           f"kernels/band.py sizes {band.AFFINE_STRIP}")
     return lib
 
 

@@ -8,9 +8,10 @@ handed across ranks through a :class:`Halo` (the collective sweep of
 The counterpart of the JAX package's ``kernels/band.py`` chained path
 (``_score_band_padded`` in boundary mode, ``score_pair_chained``). A
 single-pair sweep keeps ``(strips - 1) * m`` ints of boundary columns
-between its 1024-column strips; a band keeps ``(strips - 1) * band_rows``,
-so a chain of bands scores an m-row query in O(n * band_rows / 1024)
-device memory whatever m is. ``kernels.wavefront.score`` sends every
+between its 1024-column strips; a band keeps ``(strips - 1) * band_rows``
+(affine: H and E columns between :data:`AFFINE_STRIP`-column strips), so
+a chain of bands scores an m-row query in O(n * band_rows / 512) device
+memory whatever m is. ``kernels.wavefront.score`` sends every
 score-only sweep taller than :data:`M_MAX` rows here.
 
 :func:`score_band` returns the output dict of ``linmem.score_band`` (or
@@ -36,6 +37,11 @@ from anyseq_tpu_torch.kernels._sweep import (
 
 plain = linmem.score_band
 plain_affine = affine.score_band_affine
+
+# Columns a strip of K8 affine / K10 affine (csrc/band_sweep_affine.cuh
+# STRIP: 16 columns a lane), whose scratch and bests the wrapper sizes;
+# K8 / K10 strips are STRIP wide.
+AFFINE_STRIP = 512
 
 # Tallest query swept in one piece (the JAX package's M_MAX, a TPU memory
 # cap: on the H100 one K1 sweep still fits at 1 Mbp and is faster than
@@ -92,8 +98,8 @@ def launch(lib, q, s, row_in, corner, col_in, mode: Mode, sc: LinearScoring,
 def launch_affine(lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
                   mode: Mode, sc: AffineScoring, grid: int = 0):
     """Launch K8 affine of `lib` on the band, wherever it lies; `grid` > 0
-    caps the CTAs (of 64 threads, one a strip: K8 affine still runs the
-    older strip core)."""
+    caps the warps (one a strip; 0: the grid `band_affine.cu` chooses),
+    as for :func:`launch`."""
     return _launch_affine("band_affine", lib, q, s, row_in, rowf_in, corner,
                           col_in, cole_in, mode, sc, None, None, 0, 0, 1,
                           grid)
@@ -228,7 +234,7 @@ def score_band_collective(q_band, s, row_in, corner, col_in, mode: Mode,
     `halo_out` (None for the last rank). On a CUDA tensor it launches K10
     on the current device and stream, which must not wait on a launch
     enqueued after it; `share` launches of the sweep run on this card at
-    once and split its resident warps (linear) or CTAs (affine)."""
+    once and split its resident warps."""
     mode = Mode.parse(mode)
     is_affine = isinstance(sc, AffineScoring)
     cols = () if halo_in is not None else (
@@ -285,7 +291,7 @@ def launch_collective_affine(lib, q, s, row_in, rowf_in, corner, col_in,
                              grid: int = 0):
     """Launch K10 affine of `lib` on band b of one rank's stripe (the
     arguments of :func:`plain_collective_affine`), wherever it lies;
-    `grid` > 0 caps the CTAs, as for :func:`launch_affine`."""
+    `grid` > 0 caps the warps, as for :func:`launch_affine`."""
     return _launch_affine("band_collective_affine", lib, q, s, row_in,
                           rowf_in, corner, col_in, cole_in, mode, sc, halo_in,
                           halo_out, b, i0, share, grid)
@@ -328,7 +334,7 @@ def _launch_affine(name, lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
     """K8 affine (no halos) or K10 affine: the C entry anyseq_band_affine,
     counted as `name`."""
     h, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
+    strips = -(-n // AFFINE_STRIP)
     i32 = {"dtype": torch.int32, "device": q.device}
     ticket = torch.zeros(1, **i32)
     flags = torch.zeros(strips, **i32)

@@ -43,12 +43,13 @@
 // shared hand-off, a compare and three selects a cell for the best,
 // bound checks a cell); strips started ~191 steps apart.
 //
-// This core (band_sweep.cuh) and the grid below, step by step, with what
-// the card measured (tools/k8_ab.py; PERF.md, which also holds the times
-// of the variants measured slower, since removed from the source):
-// 1. The grid (grid_of): every strip at once where the card (or a K10
-//    rank's share of it) holds them, else as many warps as it holds over
-//    equal rounds; at most the strips a band keeps busy, ~(h + 31) / 63
+// This core (band_sweep.cuh) and its grid (band_sweep.cuh grid_of, which
+// K8 affine shares), step by step, with what the card measured
+// (tools/k8_ab.py; PERF.md, which also holds the times of the variants
+// measured slower, since removed from the source):
+// 1. The grid: every strip at once where the card (or a K10 rank's share
+//    of it) holds them, else as many warps as it holds over equal
+//    rounds; at most the strips a band keeps busy, ~(h + 31) / 63
 //    (kept: caps of 4-10 warps an SM ran 10-50% slower at 4.6 M columns,
 //    2,112 warps in 2.13 rounds 20% slower than 1,498 in 3; the busy cap
 //    ran 4,096- and 16,384-row bands 18-20% faster than every strip).
@@ -88,10 +89,6 @@ namespace {
 using band_core::LANES;
 using band_core::WARPS;
 
-// Steps from a strip's start to its right neighbour's: a chunk of rows
-// and the warp's pipeline (band_sweep.cuh).
-constexpr int LAG = band_core::CHUNK + LANES - 1;
-
 template <bool LOCAL>
 __global__ void __launch_bounds__(LANES * WARPS) band_kernel(Band B) {
   __shared__ band_core::WarpShared sh[WARPS];
@@ -107,31 +104,10 @@ __global__ void __launch_bounds__(LANES * WARPS) band_kernel(Band B) {
   }
 }
 
-// The warps that sweep a launch's `strips` strips of h rows (WARPS a
-// CTA), of which `share` launches run on the card together (K10's ranks
-// of one card): every strip at once where the card's share holds them
-// all and the band is tall enough to keep them busy; else as many as it
-// holds, or as the band keeps busy, spread over equal rounds, so that no
-// last round runs a few strips alone. A strip starts LAG steps after the
-// one to its left and sweeps h + 31 steps, so about (h + 31) / LAG
-// strips run at once: more warps would only wait, and take scheduler slots
-// from those that run. `max_grid` > 0 overrides the choice (at most the
-// share of the card, so that the ranks of a sweep stay resident
-// together).
 template <bool LOCAL>
 int grid_of(int h, int strips, int share, int max_grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)band_kernel<LOCAL>, LANES * WARPS, 0);
-  const int parts = share > 1 ? share : 1;
-  const int resident = imax(per_sm * sms / parts, 1) * WARPS;
-  if (max_grid > 0) return imin(strips, imin(max_grid, resident));
-  const int busy = (h + LANES - 1 + LAG - 1) / LAG + 1;
-  const int cap = imin(resident, busy);
-  const int rounds = (strips + cap - 1) / cap;
-  return (strips + rounds - 1) / rounds;
+  return band_core::grid_of((const void*)band_kernel<LOCAL>, h, strips,
+                            share, max_grid);
 }
 
 template <bool LOCAL>

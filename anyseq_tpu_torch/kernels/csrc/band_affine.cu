@@ -24,96 +24,75 @@
 // where given, and the last H and E columns also go to the right rank's
 // halo, as in band.cu.
 //
-// What bounds it on an H100: as K5, the dependent int32 chain of the
-// Gotoh recurrence (11 operations a cell), and latency; memory traffic is
-// O(n + h). The scratch boundary columns (H and E) hold 2 * (strips - 1)
-// * h ints, the bound on memory that lets a chain of bands run any height.
+// What bounds it on an H100: the dependent int32 chain of E along each
+// row (one max-plus a column on it) and the integer pipe that runs the
+// rest of the cell (7 instructions a cell, a max-plus counted as one, and
+// 0.5 more for LOCAL's best: the count PERF.md's bound takes; 11
+// operations in the plain recurrence); memory traffic is O(n + h).
+// The scratch boundary columns (H and E) hold 2 * (strips - 1) * h ints,
+// the bound on memory that lets a chain of bands run any height.
 //
-// Design: K5's (sweep_affine.cuh), with the explicit boundary and the halo
-// of band.cu; `max_grid` caps the CTAs (0: as many as fit on the card, or
-// their share among the ranks on one card).
-#include "sweep_affine.cuh"
+// The first design ran K5's strip core (sweep_affine.cuh: 64 threads x 16
+// columns a CTA, a CTA barrier and a shared-memory hand-off of three
+// values a step, a compare and three selects a cell for the best,
+// publish every 64 rows, every resident CTA launched), and the H form of
+// E, which puts three dependent operations a column on the row chain: a
+// 262,144 x 1,000,065 local band took 606.8 ms on an H100 80GB HBM3 at
+// 700 W, 28.4% of its bound (PERF.md). This one runs K8's warp strip
+// design (band.cu, band_sweep.cuh) on the affine core of
+// band_sweep_affine.cuh, whose row chain is E's T form alone, with 16
+// columns a lane (512-column strips), and chooses its grid by K8's rule
+// (band_sweep.cuh grid_of) from its own CTAs an SM: that band takes
+// 290-305 ms (PERF.md).
+//
+// K10 affine is K8 affine with the halo pointers set, as in band.cu: its
+// ranks run concurrently, `share` ranks on one card split its warps, and
+// ranks on other cards hand the H and E columns through peer access with
+// system-scope fences and uncached reads. The corner of band b > 0 is the
+// halo's row i0 - 1.
+#include "band_sweep_affine.cuh"
 
 using namespace anyseq;
+using band_affine_core::BandAffine;
+using band_affine_core::HaloAffine;
 
 namespace {
 
-// The halo hand-off of one K10 affine launch (all null for K8 affine).
-struct HaloAffine {
-  const int* in;         // rows [i0, i0 + h) of the H column left of the stripe
-  const int* in_e;       // and of the E column
-  const int* in_flag;    // rows published in this band
-  int* out;              // rows [i0, i0 + h) of the right rank's halo, H
-  int* out_e;            // and E
-  int* out_flag;
-  const int* corner;     // H[i0-1][-1] on the device, or null
-  bool sys_in, sys_out;  // across cards
-};
+using band_affine_core::LANES;
+using band_affine_core::WARPS;
 
 template <bool LOCAL>
-__global__ void __launch_bounds__(SWEEP_THREADS)
-    band_affine_kernel(const uint8_t* q, int h, const uint8_t* s, int n,
-                       AffineScoring sc, const int* row_in,
-                       const int* rowf_in, int corner, const int* col_in,
-                       const int* cole_in, HaloAffine halo, int strips,
-                       int* ticket, int* bcols, int* bcols_e, int* flags,
-                       int* row_out, int* rowf_out, int* last_col,
-                       int* last_col_e, int* bests) {
-  __shared__ SweepAffineShared sh;
-  __shared__ int slot;
+__global__ void __launch_bounds__(LANES * WARPS)
+    band_affine_kernel(BandAffine B) {
+  __shared__ band_affine_core::WarpSharedAffine sh[WARPS];
+  const int warp = (int)threadIdx.x / LANES;
+  if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
-    const int k = claim(ticket, &slot);
-    if (k >= strips) return;
-    const bool last = k + 1 == strips;
-    StripAffine S;
-    S.q = q;
-    S.m = h;
-    S.s = s;
-    S.n = n;
-    S.col0 = k * STRIP;
-    S.global_init = false;
-    S.start_gap = false;
-    S.top = row_in;
-    S.top_f = rowf_in;
-    S.corner = corner;
-    S.corner_ptr = halo.corner;
-    S.left_in = col_in;
-    S.left_in_e = cole_in;
-    S.left_h = k > 0 ? bcols + (size_t)(k - 1) * h : halo.in;
-    S.left_e = k > 0 ? bcols_e + (size_t)(k - 1) * h : halo.in_e;
-    S.left_flag = k > 0 ? flags + (k - 1) : halo.in_flag;
-    S.left_sys = k == 0 && halo.sys_in;
-    S.right_h = last ? halo.out : bcols + (size_t)k * h;
-    S.right_e = last ? halo.out_e : bcols_e + (size_t)k * h;
-    S.right_flag = last ? halo.out_flag : flags + k;
-    S.right_sys = last && halo.sys_out;
-    S.last_col = last_col;
-    S.last_col_e = last_col_e;
-    S.last_row = row_out;
-    S.last_row_f = rowf_out;
-    S.preds = nullptr;
-    S.pred_stride = 0;
-    S.best = bests + 3 * k;
-    sweep_strip_affine<LOCAL, false, true>(S, sc, sh);
+    const int k = band_affine_core::claim(B.ticket);
+    if (k >= B.strips) return;
+    if (k + 1 < B.strips)
+      band_affine_core::sweep_strip<LOCAL, false>(B, k, sh[warp]);
+    else
+      band_affine_core::sweep_strip<LOCAL, true>(B, k, sh[warp]);
   }
 }
 
 template <bool LOCAL>
-int launch(const uint8_t* q, int h, const uint8_t* s, int n, AffineScoring sc,
-           const int* row_in, const int* rowf_in, int corner,
-           const int* col_in, const int* cole_in, HaloAffine halo, int share,
-           int max_grid, int* ticket, int* bcols, int* bcols_e, int* flags,
-           int* row_out, int* rowf_out, int* last_col, int* last_col_e,
-           int* bests, void* stream) {
-  auto kernel = band_affine_kernel<LOCAL>;
-  const int strips = (n + STRIP - 1) / STRIP;
-  const int grid = strip_grid((const void*)kernel, SWEEP_THREADS, strips,
-                              share, max_grid);
-  ANYSEQ_LAUNCH(kernel, grid, SWEEP_THREADS, stream, q, h, s, n, sc, row_in,
-                rowf_in, corner, col_in, cole_in, halo, strips, ticket, bcols,
-                bcols_e, flags, row_out, rowf_out, last_col, last_col_e,
-                bests);
+int grid_of(int h, int strips, int share, int max_grid) {
+  return band_core::grid_of((const void*)band_affine_kernel<LOCAL>, h,
+                            strips, share, max_grid);
+}
+
+template <bool LOCAL>
+int launch(BandAffine B, int share, int max_grid, void* stream) {
+  B.workers = grid_of<LOCAL>(B.h, B.strips, share, max_grid);
+  ANYSEQ_LAUNCH(band_affine_kernel<LOCAL>, (B.workers + WARPS - 1) / WARPS,
+                LANES * WARPS, stream, B);
   return (int)cudaGetLastError();
+}
+
+int strips_of(int n) {
+  return (n + band_affine_core::STRIP - 1) / band_affine_core::STRIP;
 }
 
 }  // namespace
@@ -125,7 +104,8 @@ int launch(const uint8_t* q, int h, const uint8_t* s, int n, AffineScoring sc,
 // allocates: ticket (1 int, zeroed), flags (strips ints, zeroed), bcols
 // and bcols_e ((strips - 1) * h ints each); outputs row_out and rowf_out
 // (n ints each, not the inputs), last_col and last_col_e (h each), bests
-// (3 * strips). `share`: launches that must be resident together.
+// (3 * strips). `share`: launches that must be resident together (1 for
+// K8 affine); `max_grid` > 0 caps the warps.
 extern "C" int anyseq_band_affine(
     const void* q, int h, const void* s, int n, int match, int mismatch,
     int gap_open, int gap_extend, int mode, const void* row_in,
@@ -136,20 +116,38 @@ extern "C" int anyseq_band_affine(
     int max_grid, void* ticket, void* bcols, void* bcols_e, void* flags,
     void* row_out, void* rowf_out, void* last_col, void* last_col_e,
     void* bests, void* stream) {
-  const AffineScoring sc{match, mismatch, gap_open, gap_extend};
   const HaloAffine halo{(const int*)halo_in,      (const int*)halo_in_e,
                         (const int*)halo_in_flag, (int*)halo_out,
                         (int*)halo_out_e,         (int*)halo_out_flag,
                         (const int*)corner_ptr,   sys_in != 0,
                         sys_out != 0};
-  auto run = [&](auto kernel_launch) {
-    return kernel_launch((const uint8_t*)q, h, (const uint8_t*)s, n, sc,
-                         (const int*)row_in, (const int*)rowf_in, corner,
-                         (const int*)col_in, (const int*)cole_in, halo, share,
-                         max_grid, (int*)ticket, (int*)bcols, (int*)bcols_e,
-                         (int*)flags, (int*)row_out, (int*)rowf_out,
-                         (int*)last_col, (int*)last_col_e, (int*)bests,
-                         stream);
-  };
-  return mode == MODE_LOCAL ? run(launch<true>) : run(launch<false>);
+  const BandAffine B{(const uint8_t*)q,  h,
+                     (const uint8_t*)s,  n,
+                     match,              mismatch,
+                     gap_open,           gap_extend,
+                     (const int*)row_in, (const int*)rowf_in,
+                     corner,             (const int*)col_in,
+                     (const int*)cole_in, halo,
+                     strips_of(n),       0,
+                     (int*)ticket,       (int*)bcols,
+                     (int*)bcols_e,      (int*)flags,
+                     (int*)row_out,      (int*)rowf_out,
+                     (int*)last_col,     (int*)last_col_e,
+                     (int*)bests};
+  return mode == MODE_LOCAL ? launch<true>(B, share, max_grid, stream)
+                            : launch<false>(B, share, max_grid, stream);
 }
+
+// The warps anyseq_band_affine launches for a band of h rows and n
+// columns in `mode` with these `share` and `max_grid`, on the current
+// card.
+extern "C" int anyseq_band_affine_grid(int h, int n, int mode, int share,
+                                       int max_grid) {
+  const int strips = strips_of(n);
+  return mode == MODE_LOCAL ? grid_of<true>(h, strips, share, max_grid)
+                            : grid_of<false>(h, strips, share, max_grid);
+}
+
+// Columns a strip (kernels/band.py AFFINE_STRIP, which sizes the scratch
+// and is checked against this when the library loads).
+extern "C" int anyseq_band_affine_strip() { return band_affine_core::STRIP; }

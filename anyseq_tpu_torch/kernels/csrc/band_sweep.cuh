@@ -315,5 +315,38 @@ __device__ __forceinline__ int claim(int* ticket) {
   return __shfl_sync(FULL, k, 0);
 }
 
+// Steps from a strip's start to its right neighbour's: a chunk of rows
+// and the warp's pipeline.
+constexpr int LAG = CHUNK + LANES - 1;
+
+// The warps of `kernel` (CTAs of WARPS warps, one warp a strip) that sweep
+// a launch's `strips` strips of h rows, of which `share` launches run on
+// the card together (K10's ranks of one card): every strip at once where
+// the card's share holds them all and the band is tall enough to keep
+// them busy; else as many as it holds, or as the band keeps busy, spread
+// over equal rounds, so that no last round runs a few strips alone. A
+// strip starts LAG steps after the one to its left and sweeps h + 31
+// steps, so about (h + 31) / LAG strips run at once: more warps would
+// only wait, and take scheduler slots from those that run. `max_grid` > 0
+// overrides the choice (at most the share of the card, so that the ranks
+// of a sweep stay resident together). The CTAs an SM holds are the
+// kernel's own (its registers bound them). K8 and K8 affine choose by
+// this one rule.
+inline int grid_of(const void* kernel, int h, int strips, int share,
+                   int max_grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                LANES * WARPS, 0);
+  const int parts = share > 1 ? share : 1;
+  const int resident = imax(per_sm * sms / parts, 1) * WARPS;
+  if (max_grid > 0) return imin(strips, imin(max_grid, resident));
+  const int busy = (h + LANES - 1 + LAG - 1) / LAG + 1;
+  const int cap = imin(resident, busy);
+  const int rounds = (strips + cap - 1) / cap;
+  return (strips + rounds - 1) / rounds;
+}
+
 }  // namespace band_core
 }  // namespace anyseq

@@ -12,20 +12,7 @@
 // values from a ring in shared memory that the whole CTA fills CHUNK rows
 // ahead: the strip's left boundary column, written by the CTA that swept
 // the strip to the left and published in chunks through a progress flag
-// (or, for the first strip, the closed-form boundary or an explicit left
-// column), and the query.
-//
-// A band of rows (band.cu, K8) starts from an explicit boundary instead of
-// the closed form: a top row, its corner and the first strip's left
-// column. Thread t reads its corner H[i0-1][c0-1] from the top row, which
-// the launch only reads (the bottom row goes to another buffer), so a CTA
-// that finishes a strip never overwrites a corner that a later strip reads.
-//
-// The collective sweep (K10, band.cu) is a band over one rank's stripe of
-// columns: its first strip takes its left column from a halo that the
-// rank to its left publishes as it goes, and its last strip publishes its
-// right column into the halo of the rank to its right, with the same
-// flags as between strips (`left_sys` / `right_sys`: across cards).
+// (or, for the first strip, the closed-form boundary), and the query.
 #pragma once
 
 #include "common.cuh"
@@ -58,13 +45,6 @@ struct Strip {
   uint32_t* preds;          // packed codes, word (i, j / COLS), or null
   int pred_stride;          // words per row
   int* best;                // (score, i, j) of the strip's first maximum
-  // explicit boundary of a band (null: the closed form of global_init)
-  const int* top = nullptr;     // top row H[i0-1][0..n)
-  int corner = 0;               // H[i0-1][-1]
-  const int* left_in = nullptr; // the first strip's left column H[i0+r][-1]
-  const int* corner_ptr = nullptr;  // the corner read on the device, or null
-  bool left_sys = false;        // `left` lies on another card's producer
-  bool right_sys = false;       // `right` lies on another card
 };
 
 struct SweepShared {
@@ -87,10 +67,10 @@ __device__ __forceinline__ void stage_chunk(const Strip& S, int gap,
   if (r >= S.m) return;
   int h;
   if (S.left) {
-    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK), S.left_sys);
-    h = S.left_sys ? load_sys(S.left + r) : load_cg(S.left + r);
+    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK));
+    h = load_cg(S.left + r);
   } else {
-    h = S.top ? S.left_in[r] : boundary(S.global_init, gap, r);
+    h = boundary(S.global_init, gap, r);
   }
   sh.ring_h[r % RING] = h;
   sh.ring_q[r % RING] = S.q[r];
@@ -115,13 +95,9 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
   for (int c = 0; c < COLS; ++c) {
     const int j = c0 + c;
     sj[c] = j < S.n ? (int)S.s[j] : -1;
-    H[c] = !S.top ? boundary(S.global_init, g, j) : j < S.n ? S.top[j] : 0;
+    H[c] = boundary(S.global_init, g, j);
   }
-  // H[i-1][c0-1]
-  int diag_in = !S.top       ? boundary(S.global_init, g, c0 - 1)
-                : c0 == 0    ? (S.corner_ptr ? load_sys(S.corner_ptr) : S.corner)
-                : c0 <= S.n  ? S.top[c0 - 1]
-                             : 0;
+  int diag_in = boundary(S.global_init, g, c0 - 1);   // H[i-1][c0-1]
   const int lc = S.last_col ? S.n - 1 - c0 : -1;     // which column is n-1
   int bs = SCORE_MIN, bi = -1, bj = -1;
 
@@ -175,7 +151,7 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
       if (S.right && t == SWEEP_THREADS - 1) {
         S.right[i] = left;
         if ((i + 1) % CHUNK == 0 || i + 1 == S.m)
-          publish(S.right_flag, i + 1, S.right_sys);
+          publish(S.right_flag, i + 1);
       }
     }
     __syncthreads();

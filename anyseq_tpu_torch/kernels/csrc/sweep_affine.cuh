@@ -23,11 +23,6 @@
 // (j-k)*ge): reopening from an E-derived H[i][j-1] is never better than
 // extending. The first strip's E[i][-1] is NEG + go - ge, so that E[i][0] =
 // go + max(NEG, H[i][-1] + ge) exactly as there.
-//
-// A band (band_affine.cu, K8 affine) starts from an explicit boundary, as
-// in sweep.cuh, with the F row beside the top row and the E column beside
-// the left column, and writes the bottom F row; the collective sweep (K10
-// affine) hands the H and E columns across ranks as sweep.cuh says.
 #pragma once
 
 #include "sweep.cuh"
@@ -60,16 +55,6 @@ struct StripAffine {
   uint32_t* preds;          // 4-bit codes, word (i, j / 8), or null
   int pred_stride;          // words per row
   int* best;                // (score, i, j) of the strip's first maximum
-  // explicit boundary of a band (null: the closed form of global_init)
-  const int* top = nullptr;       // top row H[i0-1][0..n)
-  const int* top_f = nullptr;     // and F[i0-1][0..n)
-  int corner = 0;                 // H[i0-1][-1]
-  const int* left_in = nullptr;   // the first strip's left columns H[i0+r][-1]
-  const int* left_in_e = nullptr; // and E[i0+r][-1]
-  int* last_row_f = nullptr;      // F[i0+m-1][j] for the strip's columns, or null
-  const int* corner_ptr = nullptr;  // the corner read on the device, or null
-  bool left_sys = false;          // the left columns lie on another card's producer
-  bool right_sys = false;         // the right columns lie on another card
 };
 
 struct SweepAffineShared {
@@ -107,12 +92,9 @@ __device__ __forceinline__ void stage_chunk_affine(const StripAffine& S,
   if (r >= S.m) return;
   int h, e;
   if (S.left_h) {
-    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK), S.left_sys);
-    h = S.left_sys ? load_sys(S.left_h + r) : load_cg(S.left_h + r);
-    e = S.left_sys ? load_sys(S.left_e + r) : load_cg(S.left_e + r);
-  } else if (S.top) {
-    h = S.left_in[r];
-    e = S.left_in_e[r];
+    wait_for(S.left_flag, imin(S.m, (chunk + 1) * CHUNK));
+    h = load_cg(S.left_h + r);
+    e = load_cg(S.left_e + r);
   } else {
     h = col_bound(S, sc, r);
     e = NEG + sc.gap_open - sc.gap_extend;
@@ -137,14 +119,11 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
   for (int c = 0; c < COLS; ++c) {
     const int j = c0 + c;
     sj[c] = j < S.n ? (int)S.s[j] : -1;
-    H[c] = !S.top ? row_bound(S, sc, j) : j < S.n ? S.top[j] : 0;
-    F[c] = S.top && j < S.n ? S.top_f[j] : NEG;
+    H[c] = row_bound(S, sc, j);
+    F[c] = NEG;
   }
   // H[i-1][c0-1]: the corner for the first column, else the top row
-  int diag_in = !S.top ? (c0 == 0 ? col_bound(S, sc, -1) : row_bound(S, sc, c0 - 1))
-                : c0 == 0   ? (S.corner_ptr ? load_sys(S.corner_ptr) : S.corner)
-                : c0 <= S.n ? S.top[c0 - 1]
-                            : 0;
+  int diag_in = c0 == 0 ? col_bound(S, sc, -1) : row_bound(S, sc, c0 - 1);
   const int lc = S.last_col ? S.n - 1 - c0 : -1;  // which column is n-1
   int bs = SCORE_MIN, bi = -1, bj = -1;
 
@@ -214,7 +193,7 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
         S.right_h[i] = h_left;
         S.right_e[i] = e_left;
         if ((i + 1) % CHUNK == 0 || i + 1 == S.m)
-          publish(S.right_flag, i + 1, S.right_sys);
+          publish(S.right_flag, i + 1);
       }
     }
     __syncthreads();
@@ -224,11 +203,6 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
 #pragma unroll
     for (int c = 0; c < COLS; ++c)
       if (c0 + c < S.n) S.last_row[c0 + c] = H[c];
-  }
-  if (S.last_row_f) {
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      if (c0 + c < S.n) S.last_row_f[c0 + c] = F[c];
   }
   if (BEST) {
     sh.best[0][t] = bs;

@@ -7,9 +7,12 @@ Phases (any failure raises and ends the run with a non-zero exit code):
 
 1. Device and build: the card's name, power limit and top SM clock
    (nvidia-smi), and the nvcc build of the kernels from
-   ``anyseq_tpu_torch/kernels/csrc/``; beside it, K8/K10's ``band.cu``
-   built once more with ``-Xptxas -v`` (registers, spills) and its SASS
-   searched for the DPX instructions of its chain (VIADDMNMX, VIMNMX3).
+   ``anyseq_tpu_torch/kernels/csrc/``; beside it, the strip-sweep
+   sources built once more with ``-Xptxas -v`` (each kernel's registers
+   and spills), and the warp strip cores of K8/K10 (``band.cu``) and
+   their affine modes (``band_affine.cu``) checked to spill nothing, their
+   SASS searched for the DPX instructions of the chain (VIADDMNMX,
+   VIMNMX3).
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K10 and
@@ -17,8 +20,9 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    over every card where there are several: two chained bands in 3
    modes and under start_gap, and a subject that leaves the last rank
    without columns; K7's affine codes at 4,096 problems. K8 and K10
-   (linear) also with 1, 7 and strips - 1 warps beside the grid they
-   choose, and K8 from a boundary a little above SCORE_MIN.
+   (and their affine modes) also with 1, 7 and strips - 1 warps beside
+   the grid they choose; K8 from a boundary a little above SCORE_MIN,
+   K8 affine from one on both sides of NEG (ge = 0, go = 0).
 3. Five main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
@@ -47,24 +51,26 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    checkpoint save and resumed (held to a clean run), and ``align_score``
    4.6 Mbp global linear, the E. coli-scale pair, with its peak device
    memory beside what one K1 sweep's boundary columns would take; and
-   ``align`` 2.2 Mbp global linear, whose first two levels chain K8
-   bands and whose 4-part level has parts taller than ``M_MAX`` and runs
-   per half, rescored from its strings. Mesh (every card where there are
-   two or more, else 2 ranks of cuda:0): ``score_pair_sharded`` 4.6 Mbp
-   global linear and 1 Mbp local affine, ``align(mesh=)`` 1 Mbp
-   semiglobal linear (levels over the whole mesh and data-parallel
-   levels) and 100k semiglobal affine, ``align_scores_batch_sharded`` and
-   ``align_batch(mesh=)`` on the batch path's 10,000 local pairs,
-   ``dryrun_multichip`` and ``score_pairs_collective`` on a 2 x 2 mesh of
-   cuda:0 (3 pairs of 100k, linear and affine), each equal to the
-   single-device result of the same inputs.
+   ``align`` 2.2 Mbp global, linear and affine, whose first two levels
+   chain K8 (K8 affine) bands and whose 4-part level has parts taller
+   than ``M_MAX`` and runs per half, each rescored from its strings.
+   Mesh (every card where there are two or more, else 2 ranks of
+   cuda:0): ``score_pair_sharded`` 4.6 Mbp global linear and 1 Mbp
+   local affine, ``align(mesh=)`` 1 Mbp semiglobal linear (levels over
+   the whole mesh and data-parallel levels) and 100k semiglobal affine,
+   ``align_scores_batch_sharded`` and ``align_batch(mesh=)`` on the
+   batch path's 10,000 local pairs, ``dryrun_multichip`` and
+   ``score_pairs_collective`` on a 2 x 2 mesh of cuda:0 (3 pairs of
+   100k, linear and affine), each equal to the single-device result of
+   the same inputs.
 4. Each kernel against its plain version again, on the very inputs the
    main paths gave it in phase 3 (kept as they passed), bit for bit. Each
    whole 1 Mbp band (linear and affine) against the same band run as a
    chain of CUT_ROWS-row bands; each rank's first band of the mesh
    scores alone, and cut to CUT_ROWS rows against the plain version.
    K8 alone on one 262,144-row band at 1,000,000 and 4,600,000 columns,
-   3 runs each: median, spread, grid and share of its bound.
+   and K8 affine at 1,000,000, 3 runs each: median, spread, grid and
+   share of its bound.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
    SMs x 64 int32 lanes x the top SM clock), the card's line, and the
@@ -127,16 +133,19 @@ KERNELS = {
         "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
         "anyseq_tpu/kernels/band.py:1443", "mesh"),
 }
-# int32 operations a cell (or a walk step) of each kernel, counted from
-# its plain recurrence: linear H = max(diag + sub, max(up, left) + gap)
-# with sub a compare and a select (6); Gotoh F, E (two adds and a max
-# each), T and H (11); 2-bit codes add three compares, a shift and an or
-# (5), 4-bit codes nine; a walk step decodes its code (shift, and), takes
-# three compares and two decrements and forms its address (8).
-OPS = {"wavefront": 6, "wavefront_affine": 11, "lastcols": 6,
-       "lastcols_affine": 11, "swarm": 6, "swarm_affine": 11, "band": 6,
-       "band_affine": 11, "band_collective": 6, "band_collective_affine": 11,
-       "codes": 5, "codes4": 9, "walk": 8, "walk_affine": 8}
+# int32 instructions a cell (or a walk step) of each kernel's function on
+# an H100, a max-plus (DPX VIADDMNMX, one instruction) counted as one:
+# linear H = max(max(up, left) + gap, diag + sub), sub a compare and a
+# select (5); Gotoh F = max(H_up + go + ge, F_up + ge) (an add and a
+# max-plus), T = max(diag + sub, F) (a max-plus beside sub's two), E's one
+# max-plus along the row (its T form, carried as E - go - ge) and H =
+# max(T, E) (7); LOCAL adds the running best, a three-input max for two
+# cells (0.5). The plain recurrences take 6 and 11, the counts of the
+# bounds before the warp cores. 2-bit codes add three compares, a shift
+# and an or (5), 4-bit codes nine; a walk step decodes its code (shift,
+# and), takes three compares and two decrements and forms its address (8).
+OPS = {"linear": 5, "affine": 7, "best": 0.5, "codes": 5, "codes4": 9,
+       "walk": 8}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_LANES_PER_SM = 64
 # the affine scoring of the JAX package's bench suite (bench/suite.py)
@@ -157,9 +166,11 @@ CUT_ROWS = 2_048                 # phase 4's cut of a genome band
 # the 4.6 Mbp global score of the seeded pair (SEED), as every run of this
 # script has given it since the genome path was added
 ECOLI_SCORE = 7_807_881
-# the kernels whose core was redesigned for the H100: csrc/band_sweep.cuh
+# the kernels whose core was redesigned for the H100: the warp strip cores
 REDESIGNED = {"band": "csrc/band_sweep.cuh",
-              "band_collective": "csrc/band_sweep.cuh"}
+              "band_collective": "csrc/band_sweep.cuh",
+              "band_affine": "csrc/band_sweep_affine.cuh",
+              "band_collective_affine": "csrc/band_sweep_affine.cuh"}
 # a linear construction long enough that its 4-part level has parts
 # taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
 HB_GENOME_BP = 2_200_000
@@ -738,13 +749,24 @@ def phase3_small(rng):
           f"equal", flush=True)
 
 
+def cell_ops(affine: bool, args) -> float:
+    """OPS a cell of a sweep launched on `args` (LOCAL: with the best)."""
+    from anyseq_tpu_torch.core.types import Mode
+
+    local = any(a is Mode.LOCAL for a in args)
+    return OPS["affine" if affine else "linear"] + (OPS["best"] if local
+                                                    else 0)
+
+
 def bound(fn: str, args, sm_clock_mhz: float):
     """(bound_ms, bound_by) of one launch of `fn` on `args`: the larger of
     the bytes it must move (each input read once, each output written
-    once) over the card's memory rate and its int32 operations (OPS a cell
-    or a walk step) over 132 SMs x 64 int32 lanes x the top SM clock. A
-    walk counts the steps this run's data takes (the positions it
+    once) over the card's memory rate and its int32 instructions (OPS a
+    cell or a walk step) over 132 SMs x 64 int32 lanes x the top SM clock.
+    A walk counts the steps this run's data takes (the positions it
     writes)."""
+    from anyseq_tpu_torch.kernels import band
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     peak_ops = sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
     if fn.startswith("wavefront"):
@@ -756,8 +778,9 @@ def bound(fn: str, args, sm_clock_mhz: float):
             nbytes += 4 * m                          # the E last column
         if preds:
             nbytes += 4 * m * -(-n // (8 if affine else 16))
-        ops = m * n * (OPS[fn] + (OPS["codes4" if affine else "codes"]
-                                  if preds else 0))
+        ops = m * n * (cell_ops(affine, args)
+                       + (OPS["codes4" if affine else "codes"] if preds
+                          else 0))
     elif fn.startswith("band"):
         q, s = args[1], args[2]
         h, n = q.numel(), s.numel()
@@ -765,13 +788,14 @@ def bound(fn: str, args, sm_clock_mhz: float):
         # rows and columns in and out (H, and affine also F and E), and
         # each strip's best
         nbytes = (h + n + 4 * 2 * (n + h) * (2 if affine else 1)
-                  + 12 * -(-n // 1024))
-        ops = h * n * OPS[fn]
+                  + 12 * -(-n // (band.AFFINE_STRIP if affine
+                                  else band.STRIP)))
+        ops = h * n * cell_ops(affine, args)
     elif fn.startswith("walk"):
         out_q = launcher(fn)(*args)[0]
         steps = int((out_q != ord(" ")).sum())
         nbytes = steps * (4 + 2 + 2) + 16 * out_q.shape[0]
-        ops = steps * OPS[fn]
+        ops = steps * OPS["walk"]
     else:
         q, s, ms, ns = args[1:5]
         ms, ns = ms.to(torch.int64), ns.to(torch.int64)
@@ -781,7 +805,7 @@ def bound(fn: str, args, sm_clock_mhz: float):
         if fn.startswith("lastcols"):
             affine = fn == "lastcols_affine"
             nbytes += 4 * sum_m * (2 if affine else 1) + (B if affine else 0)
-            ops = cells * OPS[fn]
+            ops = cells * cell_ops(affine, args)
         else:
             sc, sgaps, _, preds = args[6:10]
             affine = hasattr(sc, "gap_open")
@@ -789,7 +813,7 @@ def bound(fn: str, args, sm_clock_mhz: float):
             per_word = 8 if affine else 16
             if preds:
                 nbytes += 4 * int((ms * (-(-ns // per_word))).sum())
-            ops = cells * (OPS["swarm_affine" if affine else "swarm"]
+            ops = cells * (cell_ops(affine, args)
                            + (OPS["codes4" if affine else "codes"] if preds
                               else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
@@ -804,9 +828,8 @@ def phase2_band(rng, errors):
     closed-form boundary, and its bottom row must equal the unchained
     K1 / K5 sweep of those rows; the second starts from that sweep's last
     row (affine: with the first band's F row), as a chain hands it on,
-    and runs once more with 7 CTAs for its strips (linear: with 1, 7 and
-    strips - 1 warps); then a linear band from a boundary near
-    SCORE_MIN."""
+    and runs once more with 1, 7 and strips - 1 warps; then a linear band
+    from a boundary near SCORE_MIN, and affine bands from one near NEG."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.engine import affine, linmem
     from anyseq_tpu_torch.kernels import _build, band, wavefront
@@ -856,35 +879,50 @@ def phase2_band(rng, errors):
                             lambda: kernel(lib, *second),
                             lambda: plain(*second))
         errors[name] = max(errors.get(name, 0), err)
-        strips = -(-n // wavefront.STRIP)
+        strips = -(-n // (band.AFFINE_STRIP if is_affine
+                          else wavefront.STRIP))
         want = plain(*second)
-        # K8 affine's grid counts CTAs of two warps, K8's warps
-        grids, unit = ([7], "CTAs") if is_affine else ([1, 7, strips - 1],
-                                                      "warps")
+        grids = [1, 7, strips - 1]
         for grid in grids:
             err = max_abs_err(kernel(lib, *second, grid=grid), want)
-            check(err == 0, f"{tag} band 1 with {grid} {unit} for {strips} "
+            check(err == 0, f"{tag} band 1 with {grid} warps for {strips} "
                             f"strips")
-        chosen = ("" if is_affine else f" (chosen: "
-                  f"{lib.anyseq_band_grid(h, n, band_mode(mode), 1, 0)})")
-        print(f"{tag} band 1 with {grids} {unit} for {strips} strips "
-              f"equal=True{chosen}", flush=True)
+        print(f"{tag} band 1 with {grids} warps for {strips} strips "
+              f"equal=True (chosen: {band_grid(name, h, n, mode)})",
+              flush=True)
     # K8 from a boundary a little above SCORE_MIN (no sum leaves int32's
-    # range), its own generator so that the main paths' pairs stay those
-    # of every earlier run
-    from anyseq_tpu_torch.core.types import SCORE_MIN
+    # range), and K8 affine from one on both sides of NEG with ge = 0 and
+    # with go = 0 (also one column wide, where E's NEG + go floor shows),
+    # from their own generator so that the main paths' pairs stay those of
+    # every earlier run
+    from anyseq_tpu_torch.core.types import NEG, SCORE_MIN
     near = np.random.default_rng(SEED + 1)
+
+    def edge(base, size):
+        return torch.from_numpy(base + near.integers(0, 500, size)
+                                .astype(np.int32)).to(dev)
+
     base = SCORE_MIN + 2**20
-    row = torch.from_numpy(base + near.integers(0, 500, n).astype(np.int32))
-    col = torch.from_numpy(base + near.integers(0, 500, h).astype(np.int32))
+    row, col = edge(base, n), edge(base, h)
     for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
-        args = (q[:h], s, row.to(dev), base + 3, col.to(dev), mode,
-                LinearScoring())
+        args = (q[:h], s, row, base + 3, col, mode, LinearScoring())
         err = max_abs_err(band.launch(lib, *args), band.plain(*args))
         check(err == 0, f"K8 near SCORE_MIN {mode.value}")
         errors["band"] = max(errors.get("band", 0), err)
         print(f"phase2 K8 band {mode.value} {h}x{n} from a boundary near "
               f"SCORE_MIN equal=True", flush=True)
+    base = NEG - 250
+    for sc in (AffineScoring(1, -6, -4, 0), AffineScoring(2, -1, 0, -1)):
+        for w in (n, 1):
+            args = (q[:h], s[:w], edge(base, w), edge(base, w), base + 3,
+                    edge(base, h), edge(base, h))
+            for mode in (Mode.LOCAL, Mode.GLOBAL, Mode.SEMIGLOBAL):
+                err = max_abs_err(band.launch_affine(lib, *args, mode, sc),
+                                  band.plain_affine(*args, mode, sc))
+                check(err == 0, f"K8 affine near NEG {sc} {mode.value} {w}")
+                errors["band_affine"] = max(errors["band_affine"], err)
+            print(f"phase2 K8 band_affine {sc} {h}x{w} from a boundary "
+                  f"near NEG, 3 modes equal=True", flush=True)
 
 
 def band_mode(mode) -> int:
@@ -892,6 +930,17 @@ def band_mode(mode) -> int:
     from anyseq_tpu_torch.kernels._sweep import MODE_CODE
 
     return MODE_CODE[mode]
+
+
+def band_grid(fn: str, h: int, n: int, mode) -> int:
+    """The warps the band kernel `fn` (band, band_affine or their
+    collective modes) chooses for h x n in `mode`, alone on the card."""
+    from anyseq_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    grid_of = (lib.anyseq_band_affine_grid if fn.endswith("_affine")
+               else lib.anyseq_band_grid)
+    return grid_of(h, n, band_mode(mode), 1, 0)
 
 
 @contextlib.contextmanager
@@ -934,25 +983,31 @@ def rings():
 
 @contextlib.contextmanager
 def collective_grid(grid: int):
-    """K10 (linear) launches made with `grid` warps inside the block."""
+    """K10 and K10 affine launches made with `grid` warps inside the
+    block."""
     from anyseq_tpu_torch.kernels import band
 
-    real = band.launch_collective
-    band.launch_collective = lambda *a, **k: real(*a, **{**k, "grid": grid})
+    real = band.launch_collective, band.launch_collective_affine
+
+    def capped(fn):
+        return lambda *a, **k: fn(*a, **{**k, "grid": grid})
+
+    band.launch_collective, band.launch_collective_affine = map(capped, real)
     try:
         yield
     finally:
-        band.launch_collective = real
+        band.launch_collective, band.launch_collective_affine = real
 
 
 def phase2_collective(rng, errors):
     """K10 and K10 affine against their plain versions on the card, over
     each of rings(): two chained bands of COLL_ROWS rows of a related pair
-    COLL_BP wide, in 3 modes (and affine GLOBAL start_gap), K10 linear
-    also with 1, 7 and strips - 1 warps a rank; then the same rows against
-    a subject that leaves the last rank without columns."""
+    COLL_BP wide, in 3 modes (and affine GLOBAL start_gap), also with 1,
+    7 and strips - 1 warps a rank; then the same rows against a subject
+    that leaves the last rank without columns."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.dist import collective
+    from anyseq_tpu_torch.kernels import band
     from anyseq_tpu_torch.kernels._sweep import STRIP
 
     dev = torch.device(DEVICE)
@@ -994,15 +1049,16 @@ def phase2_collective(rng, errors):
                          f"columns, {bands} bands) {q.numel()}x{s.numel()}")
                 err, _, _ = compare(label, run, plain, reps=2)
                 errors[name] = max(errors.get(name, 0), err)
-                if name == "band_collective":
-                    want, strips = plain(), Nl // STRIP
-                    grids = sorted({1, 7, max(strips - 1, 1)})
-                    for grid in grids:
-                        with collective_grid(grid):
-                            err = max_abs_err(run(), want)
-                        check(err == 0, f"{label} with {grid} warps a rank")
-                    print(f"{label} with {grids} warps a rank equal=True",
-                          flush=True)
+                want = plain()
+                strips = Nl // (band.AFFINE_STRIP
+                                if isinstance(sc, AffineScoring) else STRIP)
+                grids = sorted({1, 7, max(strips - 1, 1)})
+                for grid in grids:
+                    with collective_grid(grid):
+                        err = max_abs_err(run(), want)
+                    check(err == 0, f"{label} with {grid} warps a rank")
+                print(f"{label} with {grids} warps a rank equal=True",
+                      flush=True)
 
 
 def phase2_swarm_affine_codes(rng, errors):
@@ -1029,42 +1085,85 @@ def phase2_swarm_affine_codes(rng, errors):
         errors["swarm_preds"] = max(errors.get("swarm_preds", 0), err)
 
 
-def band_build_report():
-    """Start nvcc on K8/K10's source with ``-Xptxas -v`` (beside the main
-    build); returns a function that waits for it, prints band_kernel's
-    registers and spills, and checks that its SASS holds the chain's DPX
-    instructions."""
+# the sources whose ptxas report phase 1 prints, and those among them
+# that must not spill and whose SASS must hold the chain's DPX
+# instructions (the warp strip cores)
+PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
+                 "lastcols_affine.cu", "band.cu", "band_affine.cu")
+WARP_CORES = ("band.cu", "band_affine.cu")
+
+
+def ptxas_entries(out: str):
+    """(kernel, template flags, registers, spill bytes) of each entry
+    function in the output of ``nvcc -Xptxas -v``."""
+    import re
+
+    entries, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # _Z[N<scope>]<len><name>kernelI<Lb0E|Lb1E...>E...
+            k = re.search(r"\d([A-Za-z_]*kernel)(I(?:Lb[01]E)+E)?",
+                          m.group(1))
+            name = (k.group(1) if k else m.group(1),
+                    "".join(re.findall(r"Lb([01])E", k.group(2) or ""))
+                    if k else "")
+            spills = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append((*name, int(m.group(1)), spills))
+            name = None
+    return entries
+
+
+def build_report():
+    """Start nvcc with ``-Xptxas -v`` on PTXAS_SOURCES (beside the main
+    build); returns a function that waits for them, prints each kernel's
+    registers and spills, and checks that the warp strip cores (K8/K10 and
+    their affine modes) spill nothing and that their SASS holds the
+    chain's DPX instructions."""
     import tempfile
 
     from anyseq_tpu_torch.kernels import _build
 
     tmp = tempfile.TemporaryDirectory()
-    obj = os.path.join(tmp.name, "band.o")
     nvcc = _build._nvcc()
-    proc = subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
-         str(_build.CSRC / "band.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for name in PTXAS_SOURCES:
+        obj = os.path.join(tmp.name, name + ".o")
+        procs[name] = (obj, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+             str(_build.CSRC / name)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
 
     def report():
         with tmp:
-            out = proc.communicate()[0]
-            check(proc.returncode == 0, f"nvcc -Xptxas -v band.cu:\n{out}")
-            lines = out.splitlines()
-            for k, line in enumerate(lines):
-                if "band_kernel" in line and "Compiling" in line:
-                    used = [x.strip() for x in lines[k + 1:k + 4]
-                            if "Used" in x or "spill" in x]
-                    print(f"phase1 ptxas band_kernel "
-                          f"{'LOCAL' if 'ILb1' in line else 'other modes'}: "
-                          f"{'; '.join(used)}", flush=True)
-            sass = subprocess.run(
-                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
-                 obj], capture_output=True, text=True, check=True).stdout
-            counts = {op: sass.count(op) for op in ("VIADDMNMX", "VIMNMX3")}
-            print(f"phase1 SASS band.cu DPX instructions {json.dumps(counts)}",
-                  flush=True)
-            check(all(counts.values()), "band.cu's SASS holds DPX")
+            for name, (obj, proc) in procs.items():
+                out = proc.communicate()[0]
+                check(proc.returncode == 0, f"nvcc -Xptxas -v {name}:\n{out}")
+                entries = ptxas_entries(out)
+                check(entries, f"ptxas reported the kernels of {name}")
+                for kernel, flags, regs, spills in entries:
+                    print(f"phase1 ptxas {name} {kernel}<{flags}>: {regs} "
+                          f"registers, {spills} bytes spilled", flush=True)
+                    check(name not in WARP_CORES or spills == 0,
+                          f"{name} {kernel}<{flags}> spills nothing")
+                if name not in WARP_CORES:
+                    continue
+                sass = subprocess.run(
+                    [os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                     "-sass", obj], capture_output=True, text=True,
+                    check=True).stdout
+                counts = {op: sass.count(op) for op in ("VIADDMNMX",
+                                                        "VIMNMX3")}
+                print(f"phase1 SASS {name} DPX instructions "
+                      f"{json.dumps(counts)}", flush=True)
+                check(all(counts.values()), f"{name}'s SASS holds DPX")
     return report
 
 
@@ -1104,6 +1203,7 @@ def phase3_genome(rng, kept, counts):
     ckpt_5 = ("align_hirschberg", CKPT_BP, "semiglobal", "AffineScoring")
     ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
     align_7 = ("align", HB_GENOME_BP, "global", "LinearScoring")
+    align_8 = ("align", HB_GENOME_BP, "global", "AffineScoring")
 
     class Killed(Exception):
         pass
@@ -1178,6 +1278,8 @@ def phase3_genome(rng, kept, counts):
         (ecoli_6, q6, s6, lambda: pt.align_score(q6, s6, "global", sc,
                                                  device=DEVICE)),
         (align_7, q7, s7, lambda: pt.align(q7, s7, "global", sc,
+                                           device=DEVICE)),
+        (align_8, q7, s7, lambda: pt.align(q7, s7, "global", asc,
                                            device=DEVICE)),
     )
     torch.cuda.synchronize()
@@ -1293,22 +1395,27 @@ def phase3_genome(rng, kept, counts):
     print(f"phase3 4.6 Mbp global: K1's boundary columns would take "
           f"{k1_bytes / 1e9:.1f} GB", flush=True)
 
-    # call 7: K8 inside the levels, a level of more than 2 parts whose
-    # tallest passes M_MAX run per half, and the strings rescored
-    runs = [(p, tall) for c, p, tall in levels if c == align_7]
-    print(f"phase3 2.2 Mbp global align: levels run per half (parts, "
-          f"tallest part) {runs}", flush=True)
-    check(deltas[align_7].get("band", 0) > 0, "2.2 Mbp align ran K8")
-    check(any(p > 2 and tall > band.M_MAX for p, tall in runs),
-          "2.2 Mbp align ran a level of > 2 parts taller than M_MAX per half")
-    aln = results[align_7]
-    again = pt.align_score(q7, s7, "global", sc, device=DEVICE)
-    got = rescore(aln, sc)
-    check(got == aln.score == again,
-          f"2.2 Mbp global rescore {got} == score {aln.score} == "
-          f"align_score {again}")
-    print(f"phase3 2.2 Mbp global rescored={got} align_score={again} "
-          f"equal=True", flush=True)
+    # calls 7 and 8: K8 (K8 affine) inside the levels, a level of more
+    # than 2 parts whose tallest passes M_MAX run per half, and the strings
+    # rescored
+    for call, scoring, kernel in ((align_7, sc, "band"),
+                                  (align_8, asc, "band_affine")):
+        name = f"2.2 Mbp global {call[3]}"
+        runs = [(p, tall) for c, p, tall in levels if c == call]
+        print(f"phase3 {name} align: levels run per half (parts, tallest "
+              f"part) {runs}", flush=True)
+        check(deltas[call].get(kernel, 0) > 0, f"{name} align ran {kernel}")
+        check(any(p > 2 and tall > band.M_MAX for p, tall in runs),
+              f"{name} align ran a level of > 2 parts taller than M_MAX "
+              f"per half")
+        aln = results[call]
+        again = pt.align_score(q7, s7, "global", scoring, device=DEVICE)
+        got = rescore(aln, scoring)
+        check(got == aln.score == again,
+              f"{name} rescore {got} == score {aln.score} == "
+              f"align_score {again}")
+        print(f"phase3 {name} rescored={got} align_score={again} "
+              f"equal=True", flush=True)
 
 
 def mesh_devices():
@@ -1448,10 +1555,11 @@ def phase4_mesh(kept, timings, errors, sm_clock_mhz):
         for rank, args in enumerate(first):
             ms = cuda_ms(lambda: launcher(fn)(*args), 1)
             b_ms, by = bound(fn, args, sm_clock_mhz)
-            cells = args[1].numel() * args[2].numel()
+            h, n = args[1].numel(), args[2].numel()
             print(f"phase4 {fn} alone {call} rank {rank} first band "
-                  f"{args[1].numel()}x{args[2].numel()} kernel_ms={ms:.3f} "
-                  f"gcups={cells / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
+                  f"{h}x{n} kernel_ms={ms:.3f} "
+                  f"grid={band_grid(fn, h, n, args[-6])} "
+                  f"gcups={h * n / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
                   f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
         for rank, args in enumerate(first):
             cut = cut_collective(fn, args, CUT_ROWS)
@@ -1505,10 +1613,10 @@ def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
     """K8 and K8 affine against their plain versions on the first band of
     the 1 Mbp genome scores, cut to CUT_ROWS rows (the times reported in
     the JSON line); each whole 1 Mbp band against itself run as a chain
-    of CUT_ROWS-row bands; then the first whole band of the 1 Mbp and 4.6
-    Mbp global scores alone, the kernel's time (K8: the median of 3, with
-    their spread and its grid) and its bound (the 1 Mbp ones into
-    `whole`, for the JSON line)."""
+    of CUT_ROWS-row bands; then the first whole band of the 1 Mbp scores
+    and of the 4.6 Mbp global score alone, the kernel's time (the median
+    of 3, with their spread and its grid) and its bound (the 1 Mbp ones
+    into `whole`, for the JSON line)."""
     score_1 = ("align_score", GENOME_BP, "global", "LinearScoring")
     score_2 = ("align_score", GENOME_BP, "local", "AffineScoring")
     ecoli_6 = ("align_score", ECOLI_BP, "global", "LinearScoring")
@@ -1539,20 +1647,14 @@ def phase4_band(kept, timings, errors, whole, sm_clock_mhz):
               f"{args[1].numel()}x{args[2].numel()} == a chain of "
               f"{-(-args[1].numel() // CUT_ROWS)} bands of {CUT_ROWS} rows",
               flush=True)
-    from anyseq_tpu_torch.kernels import _build
-
-    lib = _build.library()
     for call, fn in ((score_1, "band"), (score_2, "band_affine"),
                      (ecoli_6, "band")):
         args = first_band(call, fn)
-        runs = [cuda_ms(lambda: launcher(fn)(*args), 1)
-                for _ in range(3 if fn == "band" else 1)]
+        runs = [cuda_ms(lambda: launcher(fn)(*args), 1) for _ in range(3)]
         ms = float(np.median(runs))
         cells = args[1].numel() * args[2].numel()
         b_ms, by = bound(fn, args, sm_clock_mhz)
-        grid = (lib.anyseq_band_grid(args[1].numel(), args[2].numel(),
-                                     band_mode(args[-2]), 1, 0)
-                if fn == "band" else "as before")
+        grid = band_grid(fn, args[1].numel(), args[2].numel(), args[-2])
         print(f"phase4 {fn} alone {' '.join(map(str, call))} first band "
               f"{args[1].numel()}x{args[2].numel()} kernel_ms={ms:.3f} "
               f"runs_ms={[round(r, 3) for r in runs]} "
@@ -1701,7 +1803,7 @@ def main() -> int:
 
     from anyseq_tpu_torch.kernels import _build
 
-    report = band_build_report()
+    report = build_report()
     build = _build.build()
     print(f"phase1 build: {build.path.name} in {build.seconds:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)

@@ -27,6 +27,8 @@ from anyseq_tpu_torch.kernels import (
 SC = LinearScoring(2, -1, -1)
 # the bench suite's affine scoring, and a free extension (ge = 0)
 ASC = [AffineScoring(2, -1, -3, -1), AffineScoring(1, -6, -4, 0)]
+# the edges of the affine chain: a free extension, and a free opening
+ASC_EDGES = [AffineScoring(1, -6, -4, 0), AffineScoring(2, -1, 0, -1)]
 
 
 @pytest.fixture(scope="module")
@@ -369,7 +371,8 @@ def test_band_collective_kernel_local_tie(emu_collective, sc):
     assert torch.equal(got["best"], want["best"])
 
 
-# --- K8 / K10 linear: the warp strip core (csrc/band_sweep.cuh) ---
+# --- K8 / K10 and their affine modes: the warp strip cores
+# (csrc/band_sweep.cuh, csrc/band_sweep_affine.cuh) ---
 
 _DPX_EDGES = [-2**31 + 1, -2**31 + 5, -2**30, -2**29 - 3, -2**29, -1000,
               -1, 0, 1, 7, 2**29, 2**30 + 11, 2**31 - 1]
@@ -437,64 +440,102 @@ def emu_card(emu_lib):
     fn(1, 1)
 
 
-@pytest.mark.parametrize("sms,ctas,h,n,share,max_grid,want", [
-    (132, 4, 262_144, 1_000_000, 1, 0, 977),   # every strip at once
-    (132, 3, 262_144, 4_600_000, 1, 0, 1498),  # 4,493 strips in 3 rounds
-    (132, 4, 262_144, 4_600_000, 1, 0, 1498),
-    (132, 4, 262_144, 2_300_000, 2, 0, 749),   # two ranks share the card
-    (132, 4, 262_144, 500_000, 2, 0, 489),
-    (132, 4, 4096, 1_000_000, 1, 0, 66),       # ~67 strips busy at once
-    (132, 4, 700, 30_000, 2, 0, 10),           # 30 strips, 13 busy: 3 x 10
-    (132, 4, 262_144, 4_600_000, 1, 462, 462),   # the override
-    (132, 4, 4096, 4_600_000, 2, 5000, 1056),  # held to the rank's share
-    (4, 2, 2000, 20_000, 1, 0, 20),
-    (1, 1, 2000, 30_000, 1, 0, 4),             # 30 strips, 4 warps, 8 rounds
-    (1, 1, 2000, 3000, 1, 1, 1),
+@pytest.mark.parametrize("kernel,sms,ctas,h,n,share,max_grid,want", [
+    ("K8", 132, 4, 262_144, 1_000_000, 1, 0, 977),   # every strip at once
+    ("K8", 132, 3, 262_144, 4_600_000, 1, 0, 1498),  # 4,493 strips: 3 rounds
+    ("K8", 132, 4, 262_144, 4_600_000, 1, 0, 1498),
+    ("K8", 132, 4, 262_144, 2_300_000, 2, 0, 749),   # two ranks, one card
+    ("K8", 132, 4, 262_144, 500_000, 2, 0, 489),
+    ("K8", 132, 4, 4096, 1_000_000, 1, 0, 66),       # ~67 strips busy at once
+    ("K8", 132, 4, 700, 30_000, 2, 0, 10),       # 30 strips, 13 busy: 3 x 10
+    ("K8", 132, 4, 262_144, 4_600_000, 1, 462, 462),  # the override
+    ("K8", 132, 4, 4096, 4_600_000, 2, 5000, 1056),  # the rank's share
+    ("K8", 4, 2, 2000, 20_000, 1, 0, 20),
+    ("K8", 1, 1, 2000, 30_000, 1, 0, 4),       # 30 strips, 4 warps: 8 rounds
+    ("K8", 1, 1, 2000, 3000, 1, 1, 1),
+    # K8 affine: 512-column strips, 16 warps an SM (the 4 CTAs its 117
+    # registers allow; fewer where a build holds fewer)
+    # every strip at once (so too a K10 affine rank with a card to itself)
+    ("K8 affine", 132, 4, 262_144, 1_000_000, 1, 0, 1954),
+    ("K8 affine", 132, 4, 262_144, 2_200_000, 1, 0, 1433),  # 3 rounds
+    ("K8 affine", 132, 2, 262_144, 1_000_000, 1, 0, 977),
+    ("K8 affine", 132, 4, 262_144, 900_000, 1, 0, 1758),
+    ("K8 affine", 132, 4, 262_144, 2_000_000, 1, 0, 1954),  # 2 rounds
+    ("K8 affine", 132, 4, 262_144, 500_000, 2, 0, 977),     # the 1 Mbp mesh
+    ("K8 affine", 132, 4, 262_144, 1_000_000, 2, 0, 977),
+    ("K8 affine", 132, 4, 4096, 1_000_000, 1, 0, 66),
+    ("K8 affine", 132, 4, 262_144, 1_000_000, 1, 462, 462),
+    ("K8 affine", 132, 4, 4096, 4_600_000, 2, 5000, 1056),
 ])
-def test_band_grid_rule(emu_card, emu_lib, sms, ctas, h, n, share, max_grid,
-                        want):
-    """anyseq_band_grid: every strip at once where the card's share holds
-    them all (CTAs of 4 warps) and the band keeps them busy (a strip
-    starts 63 steps after its left neighbour and runs h + 31), else as
-    many warps as it holds or the band keeps busy, over equal rounds;
-    max_grid overrides within the share."""
+def test_band_grid_rule(emu_card, emu_lib, kernel, sms, ctas, h, n, share,
+                        max_grid, want):
+    """anyseq_band_grid and anyseq_band_affine_grid (one rule, band_sweep.cuh
+    grid_of, over each kernel's own CTAs an SM and strips of 1024 and 512
+    columns): every strip at once where the card's share holds them all
+    (CTAs of 4 warps) and the band keeps them busy (a strip starts 63
+    steps after its left neighbour and runs h + 31), else as many warps
+    as it holds or the band keeps busy, over equal rounds; max_grid
+    overrides within the share."""
     emu_card(sms, ctas)
     for mode in Mode:
-        got = emu_lib.anyseq_band_grid(h, n, band.MODE_CODE[mode], share,
-                                       max_grid)
+        fn = (emu_lib.anyseq_band_grid if kernel == "K8"
+              else emu_lib.anyseq_band_affine_grid)
+        got = fn(h, n, band.MODE_CODE[mode], share, max_grid)
         assert got == want, mode
 
 
+@pytest.mark.parametrize("sc", [SC, ASC[0]], ids=str)
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
 @pytest.mark.parametrize("grid", [1, 2, 64])
 @pytest.mark.parametrize("i0,h,n", [(9, 7, 2100), (40, 45, 3000),
                                     (33, 32, 1024), (5, 97, 2049)])
-def test_band_kernel_warp_core(emu_card, emu_lib, i0, h, n, grid, mode):
-    """K8 on the warp core: fewer rows than lanes, rows not a multiple of
-    the 32-row publish chunk, ragged last strips (and a full one, n =
-    1024), with 1, 2 and more warps than strips (an emulated card of 4
-    SMs x 16 CTAs: a CTA's 4 warps run at once, each waiting on the strip
-    to its left, and CTAs one after another)."""
+def test_band_kernel_warp_core(emu_card, emu_lib, i0, h, n, grid, mode, sc):
+    """K8 and K8 affine on the warp cores: fewer rows than lanes, rows not
+    a multiple of the 32-row publish chunk, ragged last strips (and a full
+    one, n = 1024), with 1, 2 and more warps than strips (an emulated card
+    of 4 SMs x 16 CTAs: a CTA's 4 warps run at once, each waiting on the
+    strip to its left, and CTAs one after another); affine GLOBAL also
+    under the Myers-Miller start_gap boundary."""
     emu_card(4, 16)
     rng = np.random.default_rng(i0 * h + n + grid)
     q, s = _seq(rng, i0 + h), _seq(rng, n)
-    _check_band(emu_lib, _band_case(q, s, i0, mode, SC), grid=grid)
+    _check_band(emu_lib, _band_case(q, s, i0, mode, sc), grid=grid)
+    if isinstance(sc, AffineScoring) and mode is Mode.GLOBAL:
+        _check_band(emu_lib, _band_case(q, s, i0, mode, sc, start_gap=True),
+                    grid=grid)
 
 
+@pytest.mark.parametrize("sc", [SC] + ASC_EDGES, ids=str)
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
-def test_band_kernel_near_score_min(emu_lib, mode):
-    """A band whose top row, corner and left column lie a little above
+def test_band_kernel_near_score_min(emu_lib, mode, sc):
+    """K8: a band whose top row, corner and left column lie a little above
     SCORE_MIN (no sum leaves int32's range): the warp core's DPX chain
-    gives the plain version's values."""
-    from anyseq_tpu_torch.core.types import SCORE_MIN
+    gives the plain version's values. K8 affine: top rows H and F, corner
+    and left columns H and E on both sides of NEG = -(2**29), with ge = 0
+    and with go = 0, at 2,500 columns and at one: the T-form E chain, and
+    E's NEG + go floor at the band's first column, give the plain
+    version's values."""
+    from anyseq_tpu_torch.core.types import NEG, SCORE_MIN
 
     rng = np.random.default_rng(12)
     h, n = 70, 2500
     q, s = _seq(rng, h), _seq(rng, n)
-    base = SCORE_MIN + 2**20
-    row = torch.from_numpy(base + rng.integers(0, 500, n).astype(np.int32))
-    col = torch.from_numpy(base + rng.integers(0, 500, h).astype(np.int32))
-    _check_band(emu_lib, (q, s, row, base + 3, col, mode, SC), grid=0)
+
+    def near(base, size):
+        return torch.from_numpy(base + rng.integers(0, 500, size)
+                                .astype(np.int32))
+
+    if isinstance(sc, AffineScoring):
+        # also one column, where the floor shows in last_col_e
+        base = NEG - 250
+        for w in (n, 1):
+            args = (q, s[:w], near(base, w), near(base, w), base + 3,
+                    near(base, h), near(base, h), mode, sc)
+            _check_band(emu_lib, args, grid=0)
+    else:
+        base = SCORE_MIN + 2**20
+        args = (q, s, near(base, n), base + 3, near(base, h), mode, sc)
+        _check_band(emu_lib, args, grid=0)
 
 
 def _planted(plants, m=80, n=2200):
@@ -524,29 +565,32 @@ _X, _Y = b"ACGTTGCAAGTC", b"TTGACCAGTGCA"
     ([(_X, 50, 900), (_X, 50, 300)], (50, 300)),
     ([(_X, 50, 100), (_Y, 45, 900)], (45, 900)),
 ])
-def test_band_kernel_local_ties_lanes_warps(emu_lib, plants, want):
+@pytest.mark.parametrize("sc", [LinearScoring(1, -100, -100),
+                                AffineScoring(1, -100, -100, -100)], ids=str)
+def test_band_kernel_local_ties_lanes_warps(emu_lib, plants, want, sc):
     """Equal LOCAL maxima across the lanes of one warp and across warps
-    (strips): the first in row-major order, i counted from the band's
-    top row (i0 = 20)."""
-    sc = LinearScoring(1, -100, -100)
+    (strips), K8 and K8 affine: the first in row-major order, i counted
+    from the band's top row (i0 = 20)."""
     q, s = _planted(plants)
     i0 = 20
     args = _band_case(q, s, i0, Mode.LOCAL, sc)
-    got = band.launch(emu_lib, *args)
+    affine = isinstance(sc, AffineScoring)
+    got = (band.launch_affine if affine else band.launch)(emu_lib, *args)
     assert got["best"].tolist() == [12, want[0] - i0, want[1]]
-    for k, v in band.plain(*args).items():
+    for k, v in (band.plain_affine if affine else band.plain)(*args).items():
         assert torch.equal(got[k], v), k
 
 
+@pytest.mark.parametrize("sc", [SC, ASC[0]], ids=str)
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
 @pytest.mark.parametrize("k,m,n,band_rows", [(2, 70, 900, 33),
                                              (3, 45, 2000, 33),
                                              (3, 100, 2000, None)])
 def test_band_collective_kernel_empty_last_rank(emu_collective, k, m, n,
-                                                band_rows, mode):
-    """K10 on the warp core over 2 and 3 ranks whose last rank has no
-    columns (not launched), bands of 33 rows (chained corners, rows not a
-    multiple of the 32-row chunk) and one band."""
+                                                band_rows, mode, sc):
+    """K10 and K10 affine on the warp cores over 2 and 3 ranks whose last
+    rank has no columns (not launched), bands of 33 rows (chained
+    corners, rows not a multiple of the 32-row chunk) and one band."""
     from anyseq_tpu_torch.dist import collective
     from anyseq_tpu_torch.dist.mesh import Mesh
 
@@ -554,11 +598,18 @@ def test_band_collective_kernel_empty_last_rank(emu_collective, k, m, n,
     q, s = _seq(rng, m), _seq(rng, n)
     _, active, _, bands = collective.geometry(m, n, k, band_rows)
     assert active == k - 1
-    before = _build.launches["band_collective"]
-    got = collective.score_pair_collective(q, s, mode, SC,
+    affine = isinstance(sc, AffineScoring)
+    name = "band_collective_affine" if affine else "band_collective"
+    before = _build.launches[name]
+    got = collective.score_pair_collective(q, s, mode, sc,
                                            Mesh(["cpu"] * k, ("sp",)),
                                            band_rows=band_rows)
-    assert _build.launches["band_collective"] - before == active * bands
-    want = wavefront.plain(q, s, mode, SC)
+    assert _build.launches[name] - before == active * bands
+    if affine:
+        want = wavefront.plain_affine(q, s, mode, sc, False, True)
+        got.pop("last_row_f")
+    else:
+        want = wavefront.plain(q, s, mode, sc)
+    assert got.keys() == want.keys()
     for key in want:
         assert torch.equal(got[key], want[key]), key

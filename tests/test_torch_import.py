@@ -186,9 +186,11 @@ def test_every_kernel_has_a_launch_count():
         "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
         "band", "band_affine", "band_collective", "band_collective_affine"}
     # one launching entry a source, the peer-access switch of the
-    # collective, and the grid query of K8/K10 (which launches nothing)
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 2 == 11
-    assert "anyseq_band_grid" in _build.SIGNATURES
+    # collective, the grid queries of K8/K10 and of their affine modes and
+    # the affine strip width (which launch nothing)
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 4 == 13
+    assert {"anyseq_band_grid", "anyseq_band_affine_grid",
+            "anyseq_band_affine_strip"} <= set(_build.SIGNATURES)
 
 
 def test_wrappers_check_types():
