@@ -31,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4, K5,
 # K5p, K5L, K6, K7 score-only, K7 with codes (2-bit linear or 4-bit
 # affine), K8, K8 affine, K10 and K10 affine (one launch a rank a band).
+# K1 and K5 run K8's and K8 affine's kernels (the warp strip cores) at
+# their own widths, and count as K1 and K5.
 launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
             "lastcols": 0, "wavefront_affine_score": 0,
             "wavefront_affine_preds": 0, "lastcols_affine": 0,
@@ -40,14 +42,14 @@ launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "anyseq_wavefront": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                         _P, _P, _P, _I, _P),
+    "anyseq_wavefront": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _P),
     "anyseq_walk": (_P, _L, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P,
                     _P),
     "anyseq_lastcols": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                         _P, _I, _P, _P, _I, _P),
-    "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                            _P, _P, _I, _P, _P),
     "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
@@ -63,6 +65,15 @@ SIGNATURES = {
     "anyseq_band_grid": (_I, _I, _I, _I, _I),
     "anyseq_band_affine_grid": (_I, _I, _I, _I, _I),
     "anyseq_band_affine_strip": (),
+    "anyseq_sweep": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                     _P, _P, _P, _P, _P),
+    "anyseq_sweep_width": (_I, _I, _I),
+    "anyseq_sweep_grid": (_I, _I, _I, _I),
+    "anyseq_sweep_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P),
+    "anyseq_sweep_affine_width": (_I, _I, _I),
+    "anyseq_sweep_affine_grid": (_I, _I, _I, _I),
     "anyseq_enable_peer": (_I, _I),
 }
 

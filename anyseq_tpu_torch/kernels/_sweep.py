@@ -1,13 +1,15 @@
 """What the sweep wrappers share: the kernels' mode codes, the strip
-width of the single-pair sweeps (K1/K2, K5/K5p, K8), their input check
-and the reduction of their per-strip bests."""
+widths of the single-pair sweeps (the CTA strips of K2/K5p and K4/K5L,
+the warp strips of K1/K5 and K8), their input check and the reduction of
+their per-strip bests."""
 from __future__ import annotations
 
 import torch
 
 from anyseq_tpu_torch.core.types import Mode
 
-STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh)
+STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh), and per K8 strip
+LANES = 32     # a warp strip's lanes (csrc/band_sweep.cuh)
 MODE_CODE = {Mode.GLOBAL: 0, Mode.SEMIGLOBAL: 1, Mode.LOCAL: 2}
 _INT_MAX = 2**31 - 1
 
@@ -20,6 +22,11 @@ def check_pair(q: torch.Tensor, s: torch.Tensor) -> None:
             raise ValueError(f"{name} length {t.shape[0]} out of range")
     if q.device != s.device:
         raise ValueError("query and subject must be on one device")
+
+
+def strips_of(n: int, lane_cols: int) -> int:
+    """Warp strips of `lane_cols` columns a lane over n columns."""
+    return -(-n // (LANES * lane_cols))
 
 
 def reduce_best(bests: torch.Tensor) -> torch.Tensor:

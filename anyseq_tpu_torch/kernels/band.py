@@ -8,7 +8,7 @@ handed across ranks through a :class:`Halo` (the collective sweep of
 The counterpart of the JAX package's ``kernels/band.py`` chained path
 (``_score_band_padded`` in boundary mode, ``score_pair_chained``). A
 single-pair sweep keeps ``(strips - 1) * m`` ints of boundary columns
-between its 1024-column strips; a band keeps ``(strips - 1) * band_rows``
+between its strips; a band keeps ``(strips - 1) * band_rows``
 (affine: H and E columns between :data:`AFFINE_STRIP`-column strips), so
 a chain of bands scores an m-row query in O(n * band_rows / 512) device
 memory whatever m is. ``kernels.wavefront.score`` sends every
@@ -29,19 +29,29 @@ from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
 from anyseq_tpu_torch.engine import affine, linmem
 from anyseq_tpu_torch.kernels import _build
 from anyseq_tpu_torch.kernels._sweep import (
+    LANES,
     MODE_CODE,
-    STRIP,
     check_pair,
     reduce_best,
+    strips_of,
 )
 
 plain = linmem.score_band
 plain_affine = affine.score_band_affine
 
-# Columns a strip of K8 affine / K10 affine (csrc/band_sweep_affine.cuh
-# STRIP: 16 columns a lane), whose scratch and bests the wrapper sizes;
-# K8 / K10 strips are STRIP wide.
-AFFINE_STRIP = 512
+# Columns a lane of K8 / K10 (csrc/band_sweep.cuh BandGeom: STRIP-column
+# strips) and of K8 affine / K10 affine (csrc/band_sweep_affine.cuh
+# BandGeom: AFFINE_STRIP), whose scratch and bests the wrappers size.
+LANE_COLS = 32
+AFFINE_LANE_COLS = 16
+STRIP = LANES * LANE_COLS
+AFFINE_STRIP = LANES * AFFINE_LANE_COLS
+# The columns a lane that K1 and K5, the single-pair score sweeps on the
+# same cores, may sweep at (csrc/band.cu, csrc/band_affine.cu with_width),
+# widest first; the width rule (anyseq_sweep_width, ..._affine_width)
+# picks one per launch.
+WIDTHS = (32, 16, 8)
+AFFINE_WIDTHS = (16, 8, 4)
 
 # Tallest query swept in one piece (the JAX package's M_MAX, a TPU memory
 # cap: on the H100 one K1 sweep still fits at 1 Mbp and is faster than
@@ -302,7 +312,7 @@ def _launch(name, lib, q, s, row_in, corner, col_in, mode: Mode,
             grid: int):
     """K8 (no halos) or K10: the C entry anyseq_band, counted as `name`."""
     h, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
+    strips = strips_of(n, LANE_COLS)
     i32 = {"dtype": torch.int32, "device": q.device}
     ticket = torch.zeros(1, **i32)
     flags = torch.zeros(strips, **i32)
@@ -334,7 +344,7 @@ def _launch_affine(name, lib, q, s, row_in, rowf_in, corner, col_in, cole_in,
     """K8 affine (no halos) or K10 affine: the C entry anyseq_band_affine,
     counted as `name`."""
     h, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // AFFINE_STRIP)
+    strips = strips_of(n, AFFINE_LANE_COLS)
     i32 = {"dtype": torch.int32, "device": q.device}
     ticket = torch.zeros(1, **i32)
     flags = torch.zeros(strips, **i32)

@@ -3,7 +3,14 @@
 // length in bounded memory, and of the resumable scorer. K10: the same
 // band over one rank's stripe of columns, handing its boundary columns to
 // and from the neighbouring ranks as it runs -- the collective sweep that
-// scores one pair over several devices (dist/collective.py).
+// scores one pair over several devices (dist/collective.py). K1
+// (anyseq_sweep): a whole single-pair score sweep, up to
+// kernels/band.py M_MAX rows, as one band of this kernel from the
+// sweep's closed-form boundary, at a strip width the width rule
+// (band_sweep.cuh width_of) chooses from the card and the pair -- the
+// port of the JAX package's _score_padded (band.py:1336) score only,
+// which the first design swept on sweep.cuh's CTA strips (wavefront.cu
+// keeps them for K2, the sweep with codes).
 //
 // Replaces the JAX package's Pallas kernel anyseq_tpu/kernels/band.py
 // _score_band_padded (_make_kernel, band.py:1443): K8 its boundary mode as
@@ -86,39 +93,82 @@ using band_core::Halo;
 
 namespace {
 
+using band_core::BandGeom;
+using band_core::Form;
 using band_core::LANES;
 using band_core::WARPS;
+template <int LANE_COLS>
+using SweepGeom = band_core::Geom<LANE_COLS>;
 
-template <bool LOCAL>
+template <bool LOCAL, class G, bool CLOSED>
 __global__ void __launch_bounds__(LANES * WARPS) band_kernel(Band B) {
-  __shared__ band_core::WarpShared sh[WARPS];
+  __shared__ band_core::WarpShared<G> sh[WARPS];
   const int warp = (int)threadIdx.x / LANES;
   if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
     const int k = band_core::claim(B.ticket);
     if (k >= B.strips) return;
     if (k + 1 < B.strips)
-      band_core::sweep_strip<LOCAL, false>(B, k, sh[warp]);
+      band_core::sweep_strip<LOCAL, false, G, CLOSED>(B, k, sh[warp]);
     else
-      band_core::sweep_strip<LOCAL, true>(B, k, sh[warp]);
+      band_core::sweep_strip<LOCAL, true, G, CLOSED>(B, k, sh[warp]);
   }
 }
 
-template <bool LOCAL>
-int grid_of(int h, int strips, int share, int max_grid) {
-  return band_core::grid_of((const void*)band_kernel<LOCAL>, h, strips,
-                            share, max_grid);
+template <class G>
+int strips_of(int n) { return (n + G::STRIP - 1) / G::STRIP; }
+
+// CLOSED: K1 (the closed-form boundary of a whole sweep); else K8 / K10.
+template <bool LOCAL, class G, bool CLOSED>
+int grid_of(int h, int n, int share, int max_grid) {
+  return band_core::grid_of((const void*)band_kernel<LOCAL, G, CLOSED>, h,
+                            strips_of<G>(n), share, max_grid, G::LAG);
 }
 
-template <bool LOCAL>
+template <bool LOCAL, class G, bool CLOSED>
 int launch(Band B, int share, int max_grid, void* stream) {
-  B.workers = grid_of<LOCAL>(B.h, B.strips, share, max_grid);
-  ANYSEQ_LAUNCH(band_kernel<LOCAL>, (B.workers + WARPS - 1) / WARPS,
-                LANES * WARPS, stream, B);
+  B.strips = strips_of<G>(B.n);
+  B.workers = grid_of<LOCAL, G, CLOSED>(B.h, B.n, share, max_grid);
+  auto kernel = band_kernel<LOCAL, G, CLOSED>;
+  ANYSEQ_LAUNCH(kernel, (B.workers + WARPS - 1) / WARPS, LANES * WARPS,
+                stream, B);
   return (int)cudaGetLastError();
 }
 
-int strips_of(int n) { return (n + band_core::STRIP - 1) / band_core::STRIP; }
+// f(Form<...>{}) for one of K1's widths (= kernels/band.py WIDTHS), or
+// `bad` for another: 32 columns a lane is K8's own kernel on the sweep's
+// boundary tensors (its closed form ran 10% slower there, PERF.md), 16 and
+// 8 the closed form, which spares a short sweep the boundary's six tensor
+// launches. Four columns a lane ran slower than eight at every shape of
+// the main path (PERF.md), so K1 does not have it.
+template <class F>
+int with_width(int lane_cols, int bad, F f) {
+  switch (lane_cols) {
+    case 32: return f(Form<BandGeom, false>{});
+    case 16: return f(Form<SweepGeom<16>, true>{});
+    case 8: return f(Form<SweepGeom<8>, true>{});
+    default: return bad;
+  }
+}
+
+template <bool LOCAL, class Fm>
+band_core::Width width(Fm) {
+  using G = typename Fm::G;
+  return {G::LANE_COLS, (const void*)band_kernel<LOCAL, G, Fm::CLOSED>,
+          G::ROWS, G::LAG};
+}
+
+// K1's width rule (band_sweep.cuh width_of) over its widths.
+template <bool LOCAL>
+int sweep_width(int h, int n) {
+  band_core::Width widths[3];
+  for (int w = 0; w < 3; ++w)
+    with_width(32 >> w, 0, [&](auto fm) {
+      widths[w] = width<LOCAL>(fm);
+      return 0;
+    });
+  return band_core::width_of(widths, 3, h, n);
+}
 
 }  // namespace
 
@@ -144,20 +194,74 @@ extern "C" int anyseq_band(const void* q, int h, const void* s, int n,
   const Band B{(const uint8_t*)q, h,        (const uint8_t*)s, n,
                match,             mismatch, gap,
                (const int*)row_in, corner,  (const int*)col_in,
-               halo,              strips_of(n), 0, (int*)ticket,
-               (int*)bcols,       (int*)flags, (int*)row_out,
-               (int*)last_col,    (int*)bests};
-  return mode == MODE_LOCAL ? launch<true>(B, share, max_grid, stream)
-                            : launch<false>(B, share, max_grid, stream);
+               0,                 halo,     0,
+               0,                 (int*)ticket, (int*)bcols,
+               (int*)flags,       (int*)row_out, (int*)last_col,
+               (int*)bests};
+  return mode == MODE_LOCAL
+             ? launch<true, BandGeom, false>(B, share, max_grid, stream)
+             : launch<false, BandGeom, false>(B, share, max_grid, stream);
 }
 
 // The warps anyseq_band launches for a band of h rows and n columns in
 // `mode` with these `share` and `max_grid`, on the current card.
 extern "C" int anyseq_band_grid(int h, int n, int mode, int share,
                                 int max_grid) {
-  const int strips = strips_of(n);
-  return mode == MODE_LOCAL ? grid_of<true>(h, strips, share, max_grid)
-                            : grid_of<false>(h, strips, share, max_grid);
+  return mode == MODE_LOCAL
+             ? grid_of<true, BandGeom, false>(h, n, share, max_grid)
+             : grid_of<false, BandGeom, false>(h, n, share, max_grid);
+}
+
+// K1: the single-pair score sweep of an h-row query against an n-column
+// subject in `mode`, run as one band from the sweep's closed-form boundary
+// (H[-1][j] = (j + 1) * gap, H[i][-1] = (i + 1) * gap for GLOBAL, 0
+// else) at `lane_cols` columns a lane, one of K1's widths
+// (anyseq_sweep_width's choice, or one a caller forces): at 32, K8's
+// kernel reads that boundary from row_in (n ints) and col_in (h ints);
+// narrower, the kernel computes it (row_in, col_in unread). Scratch and
+// outputs as anyseq_band's, with strips of 32 * lane_cols columns;
+// `max_grid` > 0 caps the warps. Another width, or no boundary tensors
+// at 32: cudaErrorInvalidValue.
+extern "C" int anyseq_sweep(const void* q, int h, const void* s, int n,
+                            int match, int mismatch, int gap, int mode,
+                            int lane_cols, const void* row_in,
+                            const void* col_in, int max_grid, void* ticket,
+                            void* bcols, void* flags, void* row_out,
+                            void* last_col, void* bests, void* stream) {
+  const Band B{(const uint8_t*)q, h,        (const uint8_t*)s, n,
+               match,             mismatch, gap,
+               (const int*)row_in, 0,       (const int*)col_in,
+               mode == MODE_GLOBAL ? gap : 0, Halo{}, 0,
+               0,                 (int*)ticket, (int*)bcols,
+               (int*)flags,       (int*)row_out, (int*)last_col,
+               (int*)bests};
+  const int bad = (int)cudaErrorInvalidValue;
+  return with_width(lane_cols, bad, [&](auto fm) {
+    using Fm = decltype(fm);
+    using G = typename Fm::G;
+    if (!Fm::CLOSED && !(row_in && col_in)) return bad;
+    return mode == MODE_LOCAL
+               ? launch<true, G, Fm::CLOSED>(B, 1, max_grid, stream)
+               : launch<false, G, Fm::CLOSED>(B, 1, max_grid, stream);
+  });
+}
+
+// The columns a lane K1 sweeps an h x n pair at in `mode` on the current
+// card (band_sweep.cuh width_of).
+extern "C" int anyseq_sweep_width(int h, int n, int mode) {
+  return mode == MODE_LOCAL ? sweep_width<true>(h, n)
+                            : sweep_width<false>(h, n);
+}
+
+// The warps anyseq_sweep launches for an h x n pair in `mode` at
+// `lane_cols` columns a lane (-1 for a width K1 does not have).
+extern "C" int anyseq_sweep_grid(int h, int n, int mode, int lane_cols) {
+  return with_width(lane_cols, -1, [&](auto fm) {
+    using Fm = decltype(fm);
+    using G = typename Fm::G;
+    return mode == MODE_LOCAL ? grid_of<true, G, Fm::CLOSED>(h, n, 1, 0)
+                              : grid_of<false, G, Fm::CLOSED>(h, n, 1, 0);
+  });
 }
 
 #ifdef ANYSEQ_HOST_EMU

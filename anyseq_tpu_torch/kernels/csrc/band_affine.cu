@@ -3,7 +3,12 @@
 // scores genome-length queries and Myers-Miller halves of any height in
 // bounded memory. K10 affine: the same band over one rank's stripe of
 // columns, with the H and E boundary columns handed across ranks as in
-// band.cu.
+// band.cu. K5 (anyseq_sweep_affine): a whole single-pair affine score
+// sweep (with the Myers-Miller start_gap boundary and the E last column)
+// as one band of this kernel from the sweep's closed-form boundary, at
+// the width K1's rule chooses -- the port of _score_padded's affine score
+// sweep, which the first design swept on sweep_affine.cuh's CTA strips
+// (wavefront_affine.cu keeps them for K5p, the sweep with codes).
 //
 // Replaces the affine variant of the JAX package's Pallas kernel
 // anyseq_tpu/kernels/band.py _score_band_padded (boundary mode with rowf2
@@ -58,41 +63,86 @@ using band_affine_core::HaloAffine;
 
 namespace {
 
+using band_affine_core::BandGeom;
+using band_core::Form;
 using band_affine_core::LANES;
 using band_affine_core::WARPS;
+// K5's narrow strips: two rows a lane a step (one ran 10-13% slower at 8
+// and 4 columns a lane, PERF.md).
+template <int LANE_COLS>
+using SweepGeom = band_core::Geom<LANE_COLS, 2>;
 
-template <bool LOCAL>
+template <bool LOCAL, class G, bool CLOSED>
 __global__ void __launch_bounds__(LANES * WARPS)
     band_affine_kernel(BandAffine B) {
-  __shared__ band_affine_core::WarpSharedAffine sh[WARPS];
+  __shared__ band_affine_core::WarpSharedAffine<G> sh[WARPS];
   const int warp = (int)threadIdx.x / LANES;
   if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
     const int k = band_affine_core::claim(B.ticket);
     if (k >= B.strips) return;
     if (k + 1 < B.strips)
-      band_affine_core::sweep_strip<LOCAL, false>(B, k, sh[warp]);
+      band_affine_core::sweep<LOCAL, false, G, CLOSED>(B, k, sh[warp]);
     else
-      band_affine_core::sweep_strip<LOCAL, true>(B, k, sh[warp]);
+      band_affine_core::sweep<LOCAL, true, G, CLOSED>(B, k, sh[warp]);
   }
 }
 
-template <bool LOCAL>
-int grid_of(int h, int strips, int share, int max_grid) {
-  return band_core::grid_of((const void*)band_affine_kernel<LOCAL>, h,
-                            strips, share, max_grid);
+template <class G>
+int strips_of(int n) { return (n + G::STRIP - 1) / G::STRIP; }
+
+// CLOSED: K5 (the closed-form boundary of a whole sweep); else K8 affine /
+// K10 affine.
+template <bool LOCAL, class G, bool CLOSED>
+int grid_of(int h, int n, int share, int max_grid) {
+  return band_core::grid_of(
+      (const void*)band_affine_kernel<LOCAL, G, CLOSED>,
+      (h + G::ROWS - 1) / G::ROWS, strips_of<G>(n), share, max_grid, G::LAG);
 }
 
-template <bool LOCAL>
+template <bool LOCAL, class G, bool CLOSED>
 int launch(BandAffine B, int share, int max_grid, void* stream) {
-  B.workers = grid_of<LOCAL>(B.h, B.strips, share, max_grid);
-  ANYSEQ_LAUNCH(band_affine_kernel<LOCAL>, (B.workers + WARPS - 1) / WARPS,
-                LANES * WARPS, stream, B);
+  B.strips = strips_of<G>(B.n);
+  B.workers = grid_of<LOCAL, G, CLOSED>(B.h, B.n, share, max_grid);
+  auto kernel = band_affine_kernel<LOCAL, G, CLOSED>;
+  ANYSEQ_LAUNCH(kernel, (B.workers + WARPS - 1) / WARPS, LANES * WARPS,
+                stream, B);
   return (int)cudaGetLastError();
 }
 
-int strips_of(int n) {
-  return (n + band_affine_core::STRIP - 1) / band_affine_core::STRIP;
+// f(Form<...>{}) for one of K5's widths (= kernels/band.py AFFINE_WIDTHS),
+// or `bad` for another: 16 columns a lane is K8 affine's own kernel (one
+// row a step) on the sweep's boundary tensors (two rows a step ran no
+// faster there, and the closed form 10% slower, PERF.md); 8 and 4 the
+// closed form, two rows a lane a step.
+template <class F>
+int with_width(int lane_cols, int bad, F f) {
+  switch (lane_cols) {
+    case 16: return f(Form<BandGeom, false>{});
+    case 8: return f(Form<SweepGeom<8>, true>{});
+    case 4: return f(Form<SweepGeom<4>, true>{});
+    default: return bad;
+  }
+}
+
+template <bool LOCAL, class Fm>
+band_core::Width width(Fm) {
+  using G = typename Fm::G;
+  return {G::LANE_COLS,
+          (const void*)band_affine_kernel<LOCAL, G, Fm::CLOSED>, G::ROWS,
+          G::LAG};
+}
+
+// K5's width rule (band_sweep.cuh width_of, K1's) over its widths.
+template <bool LOCAL>
+int sweep_width(int h, int n) {
+  band_core::Width widths[3];
+  for (int w = 0; w < 3; ++w)
+    with_width(16 >> w, 0, [&](auto fm) {
+      widths[w] = width<LOCAL>(fm);
+      return 0;
+    });
+  return band_core::width_of(widths, 3, h, n);
 }
 
 }  // namespace
@@ -127,15 +177,18 @@ extern "C" int anyseq_band_affine(
                      gap_open,           gap_extend,
                      (const int*)row_in, (const int*)rowf_in,
                      corner,             (const int*)col_in,
-                     (const int*)cole_in, halo,
-                     strips_of(n),       0,
+                     (const int*)cole_in, 0,
+                     0,                  0,
+                     0,                  halo,
+                     0,                  0,
                      (int*)ticket,       (int*)bcols,
                      (int*)bcols_e,      (int*)flags,
                      (int*)row_out,      (int*)rowf_out,
                      (int*)last_col,     (int*)last_col_e,
                      (int*)bests};
-  return mode == MODE_LOCAL ? launch<true>(B, share, max_grid, stream)
-                            : launch<false>(B, share, max_grid, stream);
+  return mode == MODE_LOCAL
+             ? launch<true, BandGeom, false>(B, share, max_grid, stream)
+             : launch<false, BandGeom, false>(B, share, max_grid, stream);
 }
 
 // The warps anyseq_band_affine launches for a band of h rows and n
@@ -143,11 +196,78 @@ extern "C" int anyseq_band_affine(
 // card.
 extern "C" int anyseq_band_affine_grid(int h, int n, int mode, int share,
                                        int max_grid) {
-  const int strips = strips_of(n);
-  return mode == MODE_LOCAL ? grid_of<true>(h, strips, share, max_grid)
-                            : grid_of<false>(h, strips, share, max_grid);
+  return mode == MODE_LOCAL
+             ? grid_of<true, BandGeom, false>(h, n, share, max_grid)
+             : grid_of<false, BandGeom, false>(h, n, share, max_grid);
 }
 
 // Columns a strip (kernels/band.py AFFINE_STRIP, which sizes the scratch
 // and is checked against this when the library loads).
-extern "C" int anyseq_band_affine_strip() { return band_affine_core::STRIP; }
+extern "C" int anyseq_band_affine_strip() { return BandGeom::STRIP; }
+
+// K5: the single-pair affine score sweep of an h-row query against an
+// n-column subject in `mode`, run as one band from the sweep's
+// closed-form boundary (engine/affine.py top_row_affine and
+// left_col_affine at row 0, the Myers-Miller one under `start_gap`) at
+// `lane_cols` columns a lane, one of K5's widths
+// (anyseq_sweep_affine_width's choice, or one a caller forces): at 16,
+// K8 affine's kernel reads that boundary from row_in and rowf_in (n ints
+// each), col_in and cole_in (h ints each); narrower, the kernel computes
+// it (those unread). Scratch and outputs as anyseq_band_affine's, with
+// strips of 32 * lane_cols columns; `max_grid` > 0 caps the warps.
+// Another width, or no boundary tensors at 16: cudaErrorInvalidValue.
+extern "C" int anyseq_sweep_affine(
+    const void* q, int h, const void* s, int n, int match, int mismatch,
+    int gap_open, int gap_extend, int mode, int start_gap, int lane_cols,
+    const void* row_in, const void* rowf_in, const void* col_in,
+    const void* cole_in, int max_grid, void* ticket, void* bcols,
+    void* bcols_e, void* flags, void* row_out, void* rowf_out,
+    void* last_col, void* last_col_e, void* bests, void* stream) {
+  const bool global = mode == MODE_GLOBAL, sg = global && start_gap != 0;
+  const int neg = band_affine_core::NEG;
+  const BandAffine B{(const uint8_t*)q,  h,
+                     (const uint8_t*)s,  n,
+                     match,              mismatch,
+                     gap_open,           gap_extend,
+                     (const int*)row_in, (const int*)rowf_in,
+                     sg ? neg : 0,       (const int*)col_in,
+                     (const int*)cole_in, global && !sg ? gap_open : 0,
+                     global ? gap_extend : 0,
+                     global ? (sg ? neg : gap_open) : 0,
+                     global && !sg ? gap_extend : 0,
+                     HaloAffine{},
+                     0,                  0,
+                     (int*)ticket,       (int*)bcols,
+                     (int*)bcols_e,      (int*)flags,
+                     (int*)row_out,      (int*)rowf_out,
+                     (int*)last_col,     (int*)last_col_e,
+                     (int*)bests};
+  const int bad = (int)cudaErrorInvalidValue;
+  return with_width(lane_cols, bad, [&](auto fm) {
+    using Fm = decltype(fm);
+    using G = typename Fm::G;
+    if (!Fm::CLOSED && !(row_in && rowf_in && col_in && cole_in)) return bad;
+    return mode == MODE_LOCAL
+               ? launch<true, G, Fm::CLOSED>(B, 1, max_grid, stream)
+               : launch<false, G, Fm::CLOSED>(B, 1, max_grid, stream);
+  });
+}
+
+// The columns a lane K5 sweeps an h x n pair at in `mode` on the current
+// card (band_sweep.cuh width_of).
+extern "C" int anyseq_sweep_affine_width(int h, int n, int mode) {
+  return mode == MODE_LOCAL ? sweep_width<true>(h, n)
+                            : sweep_width<false>(h, n);
+}
+
+// The warps anyseq_sweep_affine launches for an h x n pair in `mode` at
+// `lane_cols` columns a lane (-1 for a width K5 does not have).
+extern "C" int anyseq_sweep_affine_grid(int h, int n, int mode,
+                                        int lane_cols) {
+  return with_width(lane_cols, -1, [&](auto fm) {
+    using Fm = decltype(fm);
+    using G = typename Fm::G;
+    return mode == MODE_LOCAL ? grid_of<true, G, Fm::CLOSED>(h, n, 1, 0)
+                              : grid_of<false, G, Fm::CLOSED>(h, n, 1, 0);
+  });
+}

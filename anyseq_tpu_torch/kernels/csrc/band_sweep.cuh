@@ -1,10 +1,18 @@
-// The strip core of K8 and K10 (band.cu): one 1024-column strip of a band
-// of the linear-gap DP, swept by one warp.
+// The strip core of K8 and K10 (band.cu), and of K1, the single-pair score
+// sweep (band.cu anyseq_sweep): one strip of a band of the linear-gap DP,
+// swept by one warp.
 //
-// Lane t owns the 32 consecutive columns [col0 + 32t, +32) and keeps their
-// previous-row scores and its subject symbols in registers. At step
-// `step` lane t works on row i = step - t: lane t-1 finished row i one
-// step earlier, and hands over H[i][its last column] and q[i] with
+// The strip's shape is a template parameter (Geom): lane t owns the
+// LANE_COLS consecutive columns [col0 + LANE_COLS * t, +LANE_COLS) of a
+// strip of 32 * LANE_COLS columns, and keeps their previous-row scores and
+// its subject symbols in registers. K8 and K10 sweep 1024-column strips
+// (32 columns a lane); K1 takes 32, 16 or 8 columns a lane by the width
+// rule (width_of below), so that a subject of 100k columns, or a
+// Hirschberg half of 25k, still makes enough strips to fill the card: at
+// 32 it is K8's kernel on the sweep's boundary tensors, narrower the
+// CLOSED form, which computes that boundary. At step `step`
+// lane t works on row i = step - t: lane t-1 finished row i one step
+// earlier, and hands over H[i][its last column] and q[i] with
 // __shfl_up_sync; lane 0 takes the two from a ring in shared memory that
 // the warp stages CHUNK rows at a time, one row a lane, in the step before
 // the rows are needed. No CTA barrier runs: each of a CTA's WARPS warps
@@ -18,9 +26,9 @@
 // progress flag (common.cuh publish); strip 0 reads the band's explicit
 // left column, or (K10) the halo that the rank on the left publishes the
 // same way. One lane waits on a flag, sleeping between looks, while the
-// other lanes wait at __syncwarp and run nothing. A strip's
-// first row therefore waits on its left neighbour's first CHUNK rows plus
-// the warp's 31-step pipeline: strips start ~63 steps apart.
+// other lanes wait at __syncwarp and run nothing. A strip's first row
+// therefore waits on its left neighbour's first CHUNK rows plus the warp's
+// 31-step pipeline: strips start LAG = CHUNK + 31 (63) steps apart.
 //
 // A cell is H = max(diag + sub, up + g, left + g [, 0]): the first two
 // terms off the chain with __viaddmax_s32, the last on it with one more
@@ -31,9 +39,9 @@
 // Each strip's first maximum in row-major order, (score, i, j): a lane
 // takes its row's maximum with __vimax3_s32, and only where that beats
 // its best (strictly, so the earliest row keeps a tie) stores the row in
-// shared memory (eight 16-byte stores, off the integer pipe); at the end
-// it finds the first column of that row that holds the best, and the
-// warp reduces the lanes by (score, i, j).
+// shared memory (LANE_COLS / 4 16-byte stores, off the integer pipe); at
+// the end it finds the first column of that row that holds the best, and
+// the warp reduces the lanes by (score, i, j).
 //
 // Full strips carry no bound checks; the strip that holds column n - 1
 // runs the LAST variant, which masks columns past n - 1, writes the last
@@ -47,13 +55,39 @@ namespace band_core {
 
 constexpr int LANES = 32;                   // a warp sweeps a strip
 constexpr int WARPS = 4;                    // a CTA
-constexpr int LANE_COLS = 32;
-constexpr int STRIP = LANES * LANE_COLS;    // = kernels/_sweep.py STRIP
-constexpr int CHUNK = 32;                   // rows published / staged at a time
-constexpr int RING = 2 * CHUNK;
-static_assert(CHUNK <= LANES && (CHUNK & (CHUNK - 1)) == 0,
-              "a chunk is staged one row a lane");
 constexpr unsigned FULL = 0xffffffffu;
+
+// The shape of a strip sweep: LANE_COLS columns a lane and ROWS rows a
+// lane a step (1, or 2 in the affine core's sweep_strip2); the boundary is
+// published and staged CHUNK rows at a time, one row a lane (16-row chunks
+// ran slower at every shape measured, PERF.md).
+template <int LANE_COLS_, int ROWS_ = 1>
+struct Geom {
+  static constexpr int LANE_COLS = LANE_COLS_;
+  static constexpr int STRIP = LANES * LANE_COLS;
+  static constexpr int CHUNK = 32;
+  static constexpr int RING = 2 * CHUNK;
+  static constexpr int ROWS = ROWS_;
+  static constexpr int CHUNK_STEPS = CHUNK / ROWS;
+  // steps from a strip's start to its right neighbour's: a chunk of rows
+  // and the warp's pipeline
+  static constexpr int LAG = CHUNK_STEPS + LANES - 1;
+  static_assert(LANE_COLS >= 4 && LANE_COLS % 4 == 0,
+                "a lane's best row is held four columns a 16-byte word");
+  static_assert(ROWS == 1 || ROWS == 2, "one or two rows a step");
+};
+
+// K8 and K10: 1024-column strips (= kernels/band.py LANE_COLS).
+using BandGeom = Geom<32>;
+
+// A strip shape G and whether a kernel reads the band's boundary from
+// tensors (K8's, K8 affine's) or computes the closed form of a whole
+// sweep (CLOSED: K1, K5).
+template <class G_, bool CLOSED_>
+struct Form {
+  using G = G_;
+  static constexpr bool CLOSED = CLOSED_;
+};
 
 // The halo hand-off of one K10 launch (all null for K8).
 struct Halo {
@@ -75,6 +109,7 @@ struct Band {
   const int* top;          // H[i0-1][0..n)
   int corner;              // H[i0-1][-1] where halo.corner is null
   const int* left_in;      // H[i0..i0+h)[-1] where halo.in is null
+  int edge;                // CLOSED: the closed form's step (below)
   Halo halo;
   int strips;
   int workers;             // warps that claim strips (the launch's grid)
@@ -116,23 +151,41 @@ struct Edges {
   bool right_sys;
 };
 
+// base + (x + 1) * step, wrapping in 32 bits as the plain version's int32
+// tensors do.
+__device__ __forceinline__ int closed(int x, int base, int step) {
+  return (int)((unsigned)base + (unsigned)(x + 1) * (unsigned)step);
+}
+
+// CLOSED (K1, a whole single-pair sweep): the band's top row and left
+// column are the sweep's closed-form boundary, H[-1][j] = (j + 1) * edge
+// and H[r][-1] = (r + 1) * edge (edge: the gap for GLOBAL, else 0; the
+// corner 0), computed where they are read instead of read from `top` and
+// `left_in`.
+template <bool CLOSED>
+__device__ __forceinline__ int top_at(const Band& B, int j) {
+  return CLOSED ? closed(j, 0, B.edge) : B.top[j];
+}
+
 // Rows [chunk * CHUNK, +CHUNK) of the left column and the query into the
 // ring, one row a lane; lane 0 waits for them where they are published.
+template <class G, bool CLOSED>
 __device__ __forceinline__ void stage(const Band& B, const Edges& E,
                                       unsigned long long* ring, int chunk) {
-  const int r0 = chunk * CHUNK;
+  const int r0 = chunk * G::CHUNK;
   if (r0 >= B.h) return;
   const int lane = (int)(threadIdx.x & 31);
   if (E.left) {
-    if (lane == 0) wait_rows(E.left_flag, imin(B.h, r0 + CHUNK), E.left_sys);
+    if (lane == 0)
+      wait_rows(E.left_flag, imin(B.h, r0 + G::CHUNK), E.left_sys);
     __syncwarp();
   }
   const int r = r0 + lane;
-  if (lane < CHUNK && r < B.h) {
-    const int v = !E.left     ? B.left_in[r]
+  if (lane < G::CHUNK && r < B.h) {
+    const int v = !E.left     ? (CLOSED ? closed(r, 0, B.edge) : B.left_in[r])
                   : E.left_sys ? load_sys(E.left + r)
                                : load_cg(E.left + r);
-    ring[r & (RING - 1)] =
+    ring[r & (G::RING - 1)] =
         (unsigned long long)(unsigned)v | ((unsigned long long)B.q[r] << 32);
   }
   __syncwarp();
@@ -151,35 +204,91 @@ __device__ __forceinline__ int max3(int a, int b, int c) {
 
 // A warp's shared memory: its ring, and each lane's row of its best so
 // far, four columns a 16-byte word, lane-minor (conflict-free stores).
+template <class G>
 struct WarpShared {
-  unsigned long long ring[RING];
-  int4 held[LANE_COLS / 4][LANES];
+  unsigned long long ring[G::RING];
+  int4 held[G::LANE_COLS / 4][LANES];
 };
 
+// The maximum of N values as a tree of three-way maxima.
+template <int N>
+__device__ __forceinline__ int max_tree(const int (&v)[N]) {
+  if constexpr (N == 1) {
+    return v[0];
+  } else if constexpr (N == 2) {
+    return imax(v[0], v[1]);
+  } else {
+    constexpr int M = (N + 2) / 3;
+    int r[M];
+#pragma unroll
+    for (int u = 0; u < N / 3; ++u)
+      r[u] = max3(v[3 * u], v[3 * u + 1], v[3 * u + 2]);
+    if constexpr (N % 3 == 1) r[M - 1] = v[N - 1];
+    if constexpr (N % 3 == 2) r[M - 1] = imax(v[N - 2], v[N - 1]);
+    return max_tree<M>(r);
+  }
+}
+
 // The maximum of a lane's row over its columns below n (LAST: the first
-// `valid`), as a tree of three-way maxima.
-template <bool LAST>
-__device__ __forceinline__ int lane_row_max(const int (&H)[LANE_COLS],
-                                            int valid) {
-  static_assert(LANE_COLS == 32, "the tree below takes 32 columns");
-  int v[LANE_COLS];
+// `valid`).
+template <bool LAST, int N>
+__device__ __forceinline__ int lane_row_max(const int (&H)[N], int valid) {
+  int v[N];
 #pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c)
-    v[c] = !LAST || c < valid ? H[c] : SCORE_MIN;
-  int r[11];
+  for (int c = 0; c < N; ++c) v[c] = !LAST || c < valid ? H[c] : SCORE_MIN;
+  return max_tree<N>(v);
+}
+
+// The end of strip k's best (LAST: the strip that holds column n - 1):
+// each lane finds the first column c0 + c (c < valid) of its best row bi
+// that holds its best bs, from that row in `held`; the warp reduces the
+// lanes by (score, i, j), and lane 0 stores the strip's (score, i, j) in
+// the launch's (Band's or BandAffine's) bests. Both cores' strips end with
+// it. Lane 0 forms the bests pointer itself: passed in, formed before the
+// shuffles, it took K8 11 more registers.
+template <bool LAST, int LANE_COLS, class BandT>
+__device__ __forceinline__ void store_best(
+    const int4 (&held)[LANE_COLS / 4][LANES], const BandT& B, int k, int c0,
+    int valid, int bs, int bi) {
+  const int lane = (int)(threadIdx.x & 31);
+  int bj = -1;
+  if (bi >= 0) {
 #pragma unroll
-  for (int u = 0; u < 10; ++u) r[u] = max3(v[3 * u], v[3 * u + 1], v[3 * u + 2]);
-  r[10] = imax(v[30], v[31]);
-  return imax(max3(max3(r[0], r[1], r[2]), max3(r[3], r[4], r[5]),
-                   max3(r[6], r[7], r[8])),
-              imax(r[9], r[10]));
+    for (int u = LANE_COLS / 4 - 1; u >= 0; --u) {
+      const int4 w = held[u][lane];
+      const int v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+        const int c = 4 * u + e;
+        if ((!LAST || c < valid) && v[e] == bs) bj = c0 + c;
+      }
+    }
+  }
+#pragma unroll
+  for (int d = LANES / 2; d > 0; d /= 2) {
+    const int os = __shfl_xor_sync(FULL, bs, d);
+    const int oi = __shfl_xor_sync(FULL, bi, d);
+    const int oj = __shfl_xor_sync(FULL, bj, d);
+    if (better(os, oi, oj, bs, bi, bj)) {
+      bs = os;
+      bi = oi;
+      bj = oj;
+    }
+  }
+  if (lane == 0) {
+    int* best = B.bests + 3 * k;
+    best[0] = bs;
+    best[1] = bi;
+    best[2] = bj;
+  }
 }
 
 // Strip k of the band. LAST: the strip that holds column n - 1.
-template <bool LOCAL, bool LAST>
-__device__ void sweep_strip(const Band& B, int k, WarpShared& sh) {
+template <bool LOCAL, bool LAST, class G, bool CLOSED>
+__device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
+  constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
   const int lane = (int)(threadIdx.x & 31);
-  const int c0 = k * STRIP + lane * LANE_COLS;
+  const int c0 = k * G::STRIP + lane * LANE_COLS;
   const int h = B.h, g = B.gap;
   Edges E;
   E.left = k > 0 ? B.bcols + (size_t)(k - 1) * h : B.halo.in;
@@ -199,25 +308,25 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared& sh) {
     const int j = c0 + c;
     const bool in = !LAST || c < valid;
     sj[c] = in ? (int)B.s[j] : -1;
-    H[c] = in ? B.top[j] : 0;
+    H[c] = in ? top_at<CLOSED>(B, j) : 0;
   }
   // H[i-1][c0-1]
   int diag_in = c0 == 0 ? (B.halo.corner ? load_sys(B.halo.corner) : B.corner)
-                : (!LAST || c0 <= B.n) ? B.top[c0 - 1]
+                : (!LAST || c0 <= B.n) ? top_at<CLOSED>(B, c0 - 1)
                                        : 0;
-  int bs = SCORE_MIN, bi = -1, bj = -1;
+  int bs = SCORE_MIN, bi = -1;
 
-  stage(B, E, sh.ring, 0);
+  stage<G, CLOSED>(B, E, sh.ring, 0);
   int in_h = 0, in_q = 0;   // H[i][c0-1] and q[i] from lane t-1
   const int steps = h + LANES - 1;
   for (int step = 0; step < steps; ++step) {
     if ((step & (CHUNK - 1)) == CHUNK - 1)
-      stage(B, E, sh.ring, step / CHUNK + 1);
+      stage<G, CLOSED>(B, E, sh.ring, step / CHUNK + 1);
     const int i = step - lane;
     const bool row = i >= 0 && i < h;
     int left = in_h, qi = in_q;
     if (lane == 0) {
-      const unsigned long long r = sh.ring[step & (RING - 1)];
+      const unsigned long long r = sh.ring[step & (G::RING - 1)];
       left = (int)(unsigned)r;
       qi = (int)(r >> 32);
     }
@@ -272,37 +381,7 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared& sh) {
 #pragma unroll
   for (int c = 0; c < LANE_COLS; ++c)
     if (!LAST || c < valid) B.row_out[c0 + c] = H[c];
-
-  // the first column of the best row that holds the best
-  if (bi >= 0) {
-#pragma unroll
-    for (int u = LANE_COLS / 4 - 1; u >= 0; --u) {
-      const int4 w = sh.held[u][lane];
-      const int v[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int e = 3; e >= 0; --e) {
-        const int c = 4 * u + e;
-        if ((!LAST || c < valid) && v[e] == bs) bj = c0 + c;
-      }
-    }
-  }
-#pragma unroll
-  for (int d = LANES / 2; d > 0; d /= 2) {
-    const int os = __shfl_xor_sync(FULL, bs, d);
-    const int oi = __shfl_xor_sync(FULL, bi, d);
-    const int oj = __shfl_xor_sync(FULL, bj, d);
-    if (better(os, oi, oj, bs, bi, bj)) {
-      bs = os;
-      bi = oi;
-      bj = oj;
-    }
-  }
-  if (lane == 0) {
-    int* best = B.bests + 3 * k;
-    best[0] = bs;
-    best[1] = bi;
-    best[2] = bj;
-  }
+  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
 }
 
@@ -315,37 +394,114 @@ __device__ __forceinline__ int claim(int* ticket) {
   return __shfl_sync(FULL, k, 0);
 }
 
-// Steps from a strip's start to its right neighbour's: a chunk of rows
-// and the warp's pipeline.
-constexpr int LAG = CHUNK + LANES - 1;
+// The SMs of the current card, and the CTAs of `kernel` that one holds:
+// asked of the runtime once a kernel and card and thread (the width rule
+// weighs every width of a launch), anew in the host emulation, whose
+// tests change the emulated card.
+inline void card_of(const void* kernel, int* sms, int* per_sm) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+#ifndef ANYSEQ_HOST_EMU
+  struct Known {
+    const void* kernel;
+    int dev, sms, per_sm;
+  };
+  static thread_local Known known[64];
+  static thread_local int count = 0;
+  for (int i = 0; i < count; ++i) {
+    if (known[i].kernel == kernel && known[i].dev == dev) {
+      *sms = known[i].sms;
+      *per_sm = known[i].per_sm;
+      return;
+    }
+  }
+#endif
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                LANES * WARPS, 0);
+#ifndef ANYSEQ_HOST_EMU
+  if (count < 64) known[count++] = {kernel, dev, *sms, *per_sm};
+#endif
+}
 
 // The warps of `kernel` (CTAs of WARPS warps, one warp a strip) that sweep
-// a launch's `strips` strips of h rows, of which `share` launches run on
-// the card together (K10's ranks of one card): every strip at once where
-// the card's share holds them all and the band is tall enough to keep
-// them busy; else as many as it holds, or as the band keeps busy, spread
-// over equal rounds, so that no last round runs a few strips alone. A
-// strip starts LAG steps after the one to its left and sweeps h + 31
-// steps, so about (h + 31) / LAG strips run at once: more warps would
-// only wait, and take scheduler slots from those that run. `max_grid` > 0
-// overrides the choice (at most the share of the card, so that the ranks
-// of a sweep stay resident together). The CTAs an SM holds are the
-// kernel's own (its registers bound them). K8 and K8 affine choose by
-// this one rule.
+// a launch's `strips` strips of h steps (rows, or pairs of rows), whose
+// strips start `lag` steps apart, of which `share` launches run on the card together (K10's ranks
+// of one card): every strip at once where the card's share holds them all
+// and the band is tall enough to keep them busy; else as many as it
+// holds, or as the band keeps busy, spread over equal rounds, so that no
+// last round runs a few strips alone. A strip starts `lag` steps after
+// the one to its left and sweeps h + 31 steps, so about (h + 31) / lag
+// strips run at once: more warps would only wait, and take scheduler
+// slots from those that run. `max_grid` > 0 overrides the choice (at most
+// the share of the card, so that the ranks of a sweep stay resident
+// together). The CTAs an SM holds are the kernel's own (its registers
+// bound them). K8, K8 affine, K1 and K5 choose by this one rule.
 inline int grid_of(const void* kernel, int h, int strips, int share,
-                   int max_grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                LANES * WARPS, 0);
+                   int max_grid, int lag) {
+  int sms = 0, per_sm = 0;
+  card_of(kernel, &sms, &per_sm);
   const int parts = share > 1 ? share : 1;
   const int resident = imax(per_sm * sms / parts, 1) * WARPS;
   if (max_grid > 0) return imin(strips, imin(max_grid, resident));
-  const int busy = (h + LANES - 1 + LAG - 1) / LAG + 1;
+  const int busy = (h + LANES - 1 + lag - 1) / lag + 1;
   const int cap = imin(resident, busy);
   const int rounds = (strips + cap - 1) / cap;
   return (strips + rounds - 1) / rounds;
+}
+
+// One width K1 or K5 may sweep at: its columns a lane, its kernel, its
+// rows a step and its strips' lag.
+struct Width {
+  int lane_cols;
+  const void* kernel;
+  int rows;
+  int lag;
+};
+
+// The width rule's two measured limits (PERF.md: the width sweep): a
+// launch with SWEEP_WARPS_PER_SM warps an SM keeps the card busy enough
+// that a narrower strip, which gives more warps but more fixed work a
+// step for its fewer cells and a longer fill, no longer pays; and a
+// narrower strip pays only while its fill (the strips' staggered starts,
+// (strips - 1) x lag steps) takes at most half of a strip's own steps
+// (1 / SWEEP_FILL_SHARE).
+constexpr int SWEEP_WARPS_PER_SM = 2;
+constexpr int SWEEP_FILL_SHARE = 2;
+
+// The width rule of K1 and K5 (the single-pair score sweeps), over
+// `widths`, widest first: the widest whose launch (by grid_of) runs at
+// least SWEEP_WARPS_PER_SM warps an SM; where none does (a short or
+// narrow pair), the narrowest whose fill is at most a strip's steps /
+// SWEEP_FILL_SHARE; else the widest. The boundary columns between strips
+// take (strips - 1) x h ints (K5: twice that, H and E): the first rule
+// keeps them to about twice the warps it asks for, the second to a few
+// columns of h each. At kernels/band.py M_MAX, a 512 Ki x 1 M sweep, K1
+// takes 32 columns a lane: 976 x 512 Ki ints, 2.0 GB, as on the first
+// design's 1024-column strips. K5 takes 16, K8 affine's width: 2 x 1,953
+// x 512 Ki ints, 8.2 GB, twice the first design's 4.1 GB, kept for its
+// pace there (516 ms against 1,093, PERF.md); a memory rule that chains
+// bands above a share of the card is ROADMAP R2.
+inline int width_of(const Width* widths, int count, int h, int n) {
+  int sms = 0, per_sm = 0;
+  card_of(widths[0].kernel, &sms, &per_sm);
+  for (int w = 0; w < count; ++w) {
+    const int steps = (h + widths[w].rows - 1) / widths[w].rows;
+    const int strips = (n + LANES * widths[w].lane_cols - 1) /
+                       (LANES * widths[w].lane_cols);
+    if (grid_of(widths[w].kernel, steps, strips, 1, 0, widths[w].lag) >=
+        SWEEP_WARPS_PER_SM * sms)
+      return widths[w].lane_cols;
+  }
+  for (int w = count - 1; w >= 0; --w) {
+    const long long steps = (h + widths[w].rows - 1) / widths[w].rows;
+    const long long strips = (n + LANES * widths[w].lane_cols - 1) /
+                             (LANES * widths[w].lane_cols);
+    if ((strips - 1) * widths[w].lag * SWEEP_FILL_SHARE <=
+        steps + LANES - 1)
+      return widths[w].lane_cols;
+  }
+  return widths[0].lane_cols;
 }
 
 }  // namespace band_core

@@ -1,10 +1,14 @@
-// The strip core of K8 affine and K10 affine (band_affine.cu): one
-// 512-column strip of a band of the affine-gap (Gotoh) DP, swept by one
-// warp. The affine twin of band_sweep.cuh, whose lanes, CTAs, staging
-// rhythm, flags, claim and grid rule it shares.
+// The strip core of K8 affine and K10 affine (band_affine.cu), and of K5,
+// the single-pair affine score sweep (band_affine.cu anyseq_sweep_affine):
+// one strip of a band of the affine-gap (Gotoh) DP, swept by one warp. The
+// affine twin of band_sweep.cuh, whose lanes, CTAs, strip shapes (Geom),
+// staging rhythm, flags, claim, grid rule and width rule it shares.
 //
-// Lane t owns the 16 consecutive columns [col0 + 16t, +16) and keeps
-// H[i-1][j] and F[i-1][j] of each, and its subject symbols, in registers.
+// Lane t owns the LANE_COLS consecutive columns [col0 + LANE_COLS * t,
+// +LANE_COLS) (16 for K8 affine and K10 affine; 16, 8 or 4 for K5, by the
+// width rule: at 16 K8 affine's kernel itself, narrower two rows a lane a
+// step, sweep_strip2, in the CLOSED form) and keeps H[i-1][j] and
+// F[i-1][j] of each, and its subject symbols, in registers.
 // At step `step` lane t works on row i = step - t, and lane t-1 hands over
 // H[i][its last column], the E state of lane t's first column and q[i]
 // with __shfl_up_sync; lane 0 takes them from a ring that the warp stages
@@ -48,10 +52,12 @@
 // that holds column n - 1; the last lane writes its last column's H and
 // E and publishes every CHUNK rows.
 //
-// Half the linear core's 32 columns a lane: the same band then has twice
-// the strips and warps, and an H100 ran it 10% faster at 1 M columns and
-// 20% faster at 2.2 M than with 32 columns a lane (167 registers, 12
-// warps an SM; 16 columns: 117 and 16; PERF.md).
+// K8 affine takes half the linear core's 32 columns a lane: the same band
+// then has twice the strips and warps, and an H100 ran it 10% faster at
+// 1 M columns and 20% faster at 2.2 M than with 32 columns a lane (167
+// registers, 12 warps an SM; 16 columns: 117 and 16; PERF.md). Two rows a
+// step ran K5 at 8 and 4 columns a lane 10-13% faster than one (PERF.md),
+// the linear core's K1 no faster, so only this core has them.
 #pragma once
 
 #include "band_sweep.cuh"
@@ -60,18 +66,18 @@ namespace anyseq {
 namespace band_affine_core {
 
 using band_core::addmax;
-using band_core::better;
-using band_core::CHUNK;
 using band_core::claim;
 using band_core::FULL;
+using band_core::Geom;
 using band_core::LANES;
-using band_core::max3;
-using band_core::RING;
+using band_core::lane_row_max;
+using band_core::store_best;
 using band_core::wait_rows;
 using band_core::WARPS;
 
-constexpr int LANE_COLS = 16;
-constexpr int STRIP = LANES * LANE_COLS;   // = kernels/band.py AFFINE_STRIP
+// K8 affine and K10 affine: 512-column strips (= kernels/band.py
+// AFFINE_LANE_COLS)
+using BandGeom = Geom<16>;
 constexpr int NEG = -(1 << 29);  // the affine -inf of engine/affine.py
 
 // The halo hand-off of one K10 affine launch (all null for K8 affine).
@@ -98,6 +104,9 @@ struct BandAffine {
   int corner;              // H[i0-1][-1] where halo.corner is null
   const int* left_in;      // H[i0..i0+h)[-1] where halo.in is null
   const int* left_in_e;    // E[i0..i0+h)[-1] likewise
+  // CLOSED: the closed form's H[-1][j] = top_base + (j + 1) * top_step and
+  // H[r][-1] = left_base + (r + 1) * left_step (below)
+  int top_base, top_step, left_base, left_step;
   HaloAffine halo;
   int strips;
   int workers;             // warps that claim strips (the launch's grid)
@@ -128,44 +137,44 @@ struct EdgesAffine {
 // A warp's shared memory: its ring of (H[i][c0-1], Ê of the chain's start,
 // Ê that column 0's H takes, q[i]) a row, and each lane's row of its
 // best so far, as in band_sweep.cuh.
+template <class G>
 struct WarpSharedAffine {
-  int4 ring[RING];
-  int4 held[LANE_COLS / 4][LANES];
+  int4 ring[G::RING];
+  int4 held[G::LANE_COLS / 4][LANES];
 };
 
-// The maximum of a lane's row over its columns below n (LAST: the first
-// `valid`), as a tree of three-way maxima.
-template <bool LAST>
-__device__ __forceinline__ int lane_row_max(const int (&H)[LANE_COLS],
-                                            int valid) {
-  static_assert(LANE_COLS == 16, "the tree below takes 16 columns");
-  int v[LANE_COLS];
-#pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c)
-    v[c] = !LAST || c < valid ? H[c] : SCORE_MIN;
-  int r[5];
-#pragma unroll
-  for (int u = 0; u < 5; ++u)
-    r[u] = max3(v[3 * u], v[3 * u + 1], v[3 * u + 2]);
-  return max3(max3(r[0], r[1], r[2]), imax(r[3], r[4]), v[15]);
+// CLOSED (K5, a whole single-pair sweep): the band's top rows and left
+// columns are the sweep's closed-form boundary (engine/affine.py
+// top_row_affine, left_col_affine), computed where they are read: H of
+// the top row and of the left column from their base and step (GLOBAL:
+// go + (j + 1) * ge, or (j + 1) * ge and NEG under start_gap; else 0), F
+// of the top row NEG, E of the left column NEG + go - ge.
+template <bool CLOSED>
+__device__ __forceinline__ int top_at(const BandAffine& B, int j) {
+  return CLOSED ? band_core::closed(j, B.top_base, B.top_step) : B.top[j];
 }
 
 // Rows [chunk * CHUNK, +CHUNK) of the left columns and the query into the
 // ring, one row a lane; lane 0 waits for them where they are published.
+template <class G, bool CLOSED>
 __device__ __forceinline__ void stage(const BandAffine& B,
                                       const EdgesAffine& E, int4* ring,
                                       int chunk) {
-  const int r0 = chunk * CHUNK;
+  const int r0 = chunk * G::CHUNK;
   if (r0 >= B.h) return;
   const int lane = (int)(threadIdx.x & 31);
   if (E.left) {
-    if (lane == 0) wait_rows(E.left_flag, imin(B.h, r0 + CHUNK), E.left_sys);
+    if (lane == 0)
+      wait_rows(E.left_flag, imin(B.h, r0 + G::CHUNK), E.left_sys);
     __syncwarp();
   }
   const int r = r0 + lane;
-  if (lane < CHUNK && r < B.h) {
+  if (lane < G::CHUNK && r < B.h) {
     int h, e;
-    if (!E.left) {
+    if (!E.left && CLOSED) {
+      h = band_core::closed(r, B.left_base, B.left_step);
+      e = NEG + B.go - B.ge;
+    } else if (!E.left) {
       h = B.left_in[r];
       e = B.left_in_e[r];
     } else if (E.left_sys) {
@@ -179,17 +188,18 @@ __device__ __forceinline__ void stage(const BandAffine& B,
     // E of the strip's first column, in the H form
     const int e0 = imax(e + B.ge, h + go_ge);
     const int e0_floor = E.first ? imax(e0, NEG + B.go) : e0;
-    ring[r & (RING - 1)] = int4{h, e0 - go_ge, e0_floor - go_ge, (int)B.q[r]};
+    ring[r & (G::RING - 1)] =
+        int4{h, e0 - go_ge, e0_floor - go_ge, (int)B.q[r]};
   }
   __syncwarp();
 }
 
-// Strip k of the band. LAST: the strip that holds column n - 1.
-template <bool LOCAL, bool LAST>
-__device__ void sweep_strip(const BandAffine& B, int k, WarpSharedAffine& sh) {
-  const int lane = (int)(threadIdx.x & 31);
-  const int c0 = k * STRIP + lane * LANE_COLS;
-  const int h = B.h, ge = B.ge, go_ge = B.go + B.ge;
+// Where strip k reads its left columns (strip k - 1's published ones, or
+// for strip 0 the halo or the band's own) and writes its right ones (into
+// bcols for strip k + 1, or from the last strip the right halo).
+template <bool LAST>
+__device__ __forceinline__ EdgesAffine edges_of(const BandAffine& B, int k) {
+  const int h = B.h;
   EdgesAffine E;
   E.left = k > 0 ? B.bcols + (size_t)(k - 1) * h : B.halo.in;
   E.left_e = k > 0 ? B.bcols_e + (size_t)(k - 1) * h : B.halo.in_e;
@@ -200,6 +210,54 @@ __device__ void sweep_strip(const BandAffine& B, int k, WarpSharedAffine& sh) {
   E.right_e = !LAST ? B.bcols_e + (size_t)k * h : B.halo.out_e;
   E.right_flag = !LAST ? B.flags + k : B.halo.out_flag;
   E.right_sys = LAST && B.halo.sys_out;
+  return E;
+}
+
+// A lane's subject symbols and the band's top rows H and F at its columns
+// c0 + c (LAST: those below n, `valid`); returns H[i0-1][c0-1], the
+// diagonal of its first column.
+template <bool LAST, bool CLOSED, int LANE_COLS>
+__device__ __forceinline__ int load_top(const BandAffine& B, int c0,
+                                        int valid, int (&sj)[LANE_COLS],
+                                        int (&H)[LANE_COLS],
+                                        int (&F)[LANE_COLS]) {
+#pragma unroll
+  for (int c = 0; c < LANE_COLS; ++c) {
+    const int j = c0 + c;
+    const bool in = !LAST || c < valid;
+    sj[c] = in ? (int)B.s[j] : -1;
+    H[c] = in ? top_at<CLOSED>(B, j) : 0;
+    F[c] = !in ? 0 : CLOSED ? NEG : B.top_f[j];
+  }
+  return c0 == 0 ? (B.halo.corner ? load_sys(B.halo.corner) : B.corner)
+         : (!LAST || c0 <= B.n) ? top_at<CLOSED>(B, c0 - 1)
+                                : 0;
+}
+
+// A lane's columns of the band's bottom rows H and F.
+template <bool LAST, int LANE_COLS>
+__device__ __forceinline__ void store_rows(const BandAffine& B, int c0,
+                                           int valid,
+                                           const int (&H)[LANE_COLS],
+                                           const int (&F)[LANE_COLS]) {
+#pragma unroll
+  for (int c = 0; c < LANE_COLS; ++c) {
+    if (!LAST || c < valid) {
+      B.row_out[c0 + c] = H[c];
+      B.rowf_out[c0 + c] = F[c];
+    }
+  }
+}
+
+// Strip k of the band. LAST: the strip that holds column n - 1.
+template <bool LOCAL, bool LAST, class G, bool CLOSED>
+__device__ void sweep_strip(const BandAffine& B, int k,
+                            WarpSharedAffine<G>& sh) {
+  constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
+  const int lane = (int)(threadIdx.x & 31);
+  const int c0 = k * G::STRIP + lane * LANE_COLS;
+  const int h = B.h, ge = B.ge, go_ge = B.go + B.ge;
+  const EdgesAffine E = edges_of<LAST>(B, k);
   // LAST: the lane's columns below n, and which of them is n - 1
   const int valid = LAST ? B.n - c0 : LANE_COLS;
   const int lc = LAST ? B.n - 1 - c0 : -1;
@@ -207,32 +265,22 @@ __device__ void sweep_strip(const BandAffine& B, int k, WarpSharedAffine& sh) {
   int sj[LANE_COLS];
   int H[LANE_COLS];      // H[i-1][c0 + c] before row i, H[i][c0 + c] after it
   int F[LANE_COLS];      // F likewise
-#pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c) {
-    const int j = c0 + c;
-    const bool in = !LAST || c < valid;
-    sj[c] = in ? (int)B.s[j] : -1;
-    H[c] = in ? B.top[j] : 0;
-    F[c] = in ? B.top_f[j] : 0;
-  }
   // H[i-1][c0-1]
-  int diag_in = c0 == 0 ? (B.halo.corner ? load_sys(B.halo.corner) : B.corner)
-                : (!LAST || c0 <= B.n) ? B.top[c0 - 1]
-                                       : 0;
-  int bs = SCORE_MIN, bi = -1, bj = -1;
+  int diag_in = load_top<LAST, CLOSED>(B, c0, valid, sj, H, F);
+  int bs = SCORE_MIN, bi = -1;
 
-  stage(B, E, sh.ring, 0);
+  stage<G, CLOSED>(B, E, sh.ring, 0);
   // from lane t-1: H[i][c0-1], Ê[i][c0] and q[i]
   int in_h = 0, in_e = 0, in_q = 0;
   const int steps = h + LANES - 1;
   for (int step = 0; step < steps; ++step) {
     if ((step & (CHUNK - 1)) == CHUNK - 1)
-      stage(B, E, sh.ring, step / CHUNK + 1);
+      stage<G, CLOSED>(B, E, sh.ring, step / CHUNK + 1);
     const int i = step - lane;
     const bool row = i >= 0 && i < h;
     int left = in_h, eh = in_e, eh0 = in_e, qi = in_q;
     if (lane == 0) {
-      const int4 r = sh.ring[step & (RING - 1)];
+      const int4 r = sh.ring[step & (G::RING - 1)];
       left = r.x;
       eh = r.y;
       eh0 = r.z;
@@ -294,45 +342,185 @@ __device__ void sweep_strip(const BandAffine& B, int k, WarpSharedAffine& sh) {
     }
   }
 
-#pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c) {
-    if (!LAST || c < valid) {
-      B.row_out[c0 + c] = H[c];
-      B.rowf_out[c0 + c] = F[c];
-    }
-  }
+  store_rows<LAST>(B, c0, valid, H, F);
+  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
+  __syncwarp();   // the ring is free for the warp's next strip
+}
 
-  // the first column of the best row that holds the best
-  if (bi >= 0) {
+// Strip k of the band, two rows a lane a step (Geom ROWS = 2; K5 at 8
+// and 4 columns a lane): sweep_strip's cell, with the second row one
+// column behind the first, so that the two E chains of a lane overlap,
+// and the hand-off (five values), ring reads and loop serve two rows. Odd
+// h: a lane's last step sweeps the one row left.
+template <bool LOCAL, bool LAST, class G, bool CLOSED>
+__device__ void sweep_strip2(const BandAffine& B, int k,
+                             WarpSharedAffine<G>& sh) {
+  constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
+  constexpr int STEPS = G::CHUNK_STEPS;
+  const int lane = (int)(threadIdx.x & 31);
+  const int c0 = k * G::STRIP + lane * LANE_COLS;
+  const int h = B.h, ge = B.ge, go_ge = B.go + B.ge;
+  const int match = B.match, mismatch = B.mismatch;
+  const EdgesAffine E = edges_of<LAST>(B, k);
+  const int valid = LAST ? B.n - c0 : LANE_COLS;
+  const int lc = LAST ? B.n - 1 - c0 : -1;
+
+  int sj[LANE_COLS];
+  int H[LANE_COLS];      // H[i0-1][c0 + c] before the pair, H[i0+1] after
+  int F[LANE_COLS];      // F likewise
+  // H[i0-1][c0-1]
+  int diag_in = load_top<LAST, CLOSED>(B, c0, valid, sj, H, F);
+  int bs = SCORE_MIN, bi = -1;
+
+  stage<G, CLOSED>(B, E, sh.ring, 0);
+  // from lane t-1: H[i0][c0-1], H[i0+1][c0-1], Ê[i0][c0], Ê[i0+1][c0],
+  // q[i0] | q[i0+1] << 8
+  int in_h0 = 0, in_h1 = 0, in_e0 = 0, in_e1 = 0, in_q = 0;
+  int R0[LANE_COLS] = {};    // H[i0][c0 + c]
+  const int pairs = (h + 1) / 2;
+  const int steps = pairs + LANES - 1;
+  for (int step = 0; step < steps; ++step) {
+    if ((step & (STEPS - 1)) == STEPS - 1)
+      stage<G, CLOSED>(B, E, sh.ring, step / STEPS + 1);
+    const int p = step - lane;
+    const int i0 = 2 * p;
+    const bool row = p >= 0 && p < pairs;
+    int left0 = in_h0, left1 = in_h1, qq = in_q;
+    int e0 = in_e0, e0_first = in_e0, e1 = in_e1, e1_first = in_e1;
+    if (lane == 0) {
+      const int4 r0 = sh.ring[(2 * step) & (G::RING - 1)];
+      const int4 r1 = sh.ring[(2 * step + 1) & (G::RING - 1)];
+      left0 = r0.x;
+      e0 = r0.y;
+      e0_first = r0.z;
+      left1 = r1.x;
+      e1 = r1.y;
+      e1_first = r1.z;
+      qq = r0.w | (r1.w << 8);
+    }
+    const bool second = i0 + 1 < h;
+    if (row) {
+      const int q0 = qq & 0xff, q1 = qq >> 8;
+      int d0 = diag_in, d1 = left0;
+      diag_in = left1;
+      int e_out0 = 0, e_out1 = 0;   // Ê of the column this lane writes out
+      if (second) {
 #pragma unroll
-    for (int u = LANE_COLS / 4 - 1; u >= 0; --u) {
-      const int4 w = sh.held[u][lane];
-      const int v[4] = {w.x, w.y, w.z, w.w};
+        for (int c = 0; c < LANE_COLS; ++c) {
+          const int up = H[c];
+          const int f0 = addmax<false>(up, go_ge, F[c] + ge);
+          const int t0 = addmax<LOCAL>(d0, q0 == sj[c] ? match : mismatch,
+                                       f0);
+          const int ec0 = c == 0 ? e0_first : e0;
+          const int h0 = addmax<false>(ec0, go_ge, t0);
+          e0 = addmax<false>(e0, ge, t0);
+          const int f1 = addmax<false>(h0, go_ge, f0 + ge);
+          const int t1 = addmax<LOCAL>(d1, q1 == sj[c] ? match : mismatch,
+                                       f1);
+          const int ec1 = c == 0 ? e1_first : e1;
+          const int h1 = addmax<false>(ec1, go_ge, t1);
+          e1 = addmax<false>(e1, ge, t1);
+          if (LAST ? c == lc : c == LANE_COLS - 1) {
+            e_out0 = ec0;
+            e_out1 = ec1;
+          }
+          d0 = up;
+          d1 = h0;
+          R0[c] = h0;
+          H[c] = h1;
+          F[c] = f1;
+        }
+      } else {
+        // the band's last row alone
 #pragma unroll
-      for (int e = 3; e >= 0; --e) {
-        const int c = 4 * u + e;
-        if ((!LAST || c < valid) && v[e] == bs) bj = c0 + c;
+        for (int c = 0; c < LANE_COLS; ++c) {
+          const int up = H[c];
+          const int f0 = addmax<false>(up, go_ge, F[c] + ge);
+          const int t0 = addmax<LOCAL>(d0, q0 == sj[c] ? match : mismatch,
+                                       f0);
+          const int ec0 = c == 0 ? e0_first : e0;
+          if (LAST ? c == lc : c == LANE_COLS - 1) e_out0 = ec0;
+          H[c] = R0[c] = addmax<false>(ec0, go_ge, t0);
+          F[c] = f0;
+          e0 = addmax<false>(e0, ge, t0);
+          d0 = up;
+        }
+      }
+      if (LAST) {
+        if (lc >= 0 && lc < LANE_COLS) {
+          int v0 = R0[0], v1 = H[0];
+#pragma unroll
+          for (int c = 1; c < LANE_COLS; ++c) {
+            if (c == lc) {
+              v0 = R0[c];
+              v1 = H[c];
+            }
+          }
+          B.last_col[i0] = v0;
+          B.last_col_e[i0] = e_out0 + go_ge;
+          if (second) {
+            B.last_col[i0 + 1] = v1;
+            B.last_col_e[i0 + 1] = e_out1 + go_ge;
+          }
+          if (E.right) {
+            E.right[i0] = v0;
+            E.right_e[i0] = e_out0 + go_ge;
+            if (second) {
+              E.right[i0 + 1] = v1;
+              E.right_e[i0 + 1] = e_out1 + go_ge;
+            }
+            if (((i0 + 2) & (CHUNK - 1)) == 0 || i0 + 2 >= h)
+              publish(E.right_flag, imin(i0 + 2, h), E.right_sys);
+          }
+        }
+      } else if (lane == LANES - 1) {
+        E.right[i0] = R0[LANE_COLS - 1];
+        E.right_e[i0] = e_out0 + go_ge;
+        if (second) {
+          E.right[i0 + 1] = H[LANE_COLS - 1];
+          E.right_e[i0 + 1] = e_out1 + go_ge;
+        }
+        if (((i0 + 2) & (CHUNK - 1)) == 0 || i0 + 2 >= h)
+          publish(E.right_flag, imin(i0 + 2, h), E.right_sys);
+      }
+    }
+    // the next step's inputs first, so that the best below overlaps them
+    in_h0 = __shfl_up_sync(FULL, R0[LANE_COLS - 1], 1);
+    in_h1 = __shfl_up_sync(FULL, H[LANE_COLS - 1], 1);
+    in_e0 = __shfl_up_sync(FULL, e0, 1);
+    in_e1 = __shfl_up_sync(FULL, e1, 1);
+    in_q = __shfl_up_sync(FULL, qq, 1);
+    if (row) {
+      const int m0 = lane_row_max<LAST>(R0, valid);
+      const int m1 = second ? lane_row_max<LAST>(H, valid) : SCORE_MIN;
+      if (imax(m0, m1) > bs) {
+        // the earlier row on a tie
+        const bool first = m0 >= m1;
+        bs = first ? m0 : m1;
+        bi = first ? i0 : i0 + 1;
+#pragma unroll
+        for (int u = 0; u < LANE_COLS / 4; ++u)
+          sh.held[u][lane] =
+              first ? int4{R0[4 * u], R0[4 * u + 1], R0[4 * u + 2],
+                           R0[4 * u + 3]}
+                    : int4{H[4 * u], H[4 * u + 1], H[4 * u + 2], H[4 * u + 3]};
       }
     }
   }
-#pragma unroll
-  for (int d = LANES / 2; d > 0; d /= 2) {
-    const int os = __shfl_xor_sync(FULL, bs, d);
-    const int oi = __shfl_xor_sync(FULL, bi, d);
-    const int oj = __shfl_xor_sync(FULL, bj, d);
-    if (better(os, oi, oj, bs, bi, bj)) {
-      bs = os;
-      bi = oi;
-      bj = oj;
-    }
-  }
-  if (lane == 0) {
-    int* best = B.bests + 3 * k;
-    best[0] = bs;
-    best[1] = bi;
-    best[2] = bj;
-  }
+
+  store_rows<LAST>(B, c0, valid, H, F);
+  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
+}
+
+// Strip k at G's rows a step.
+template <bool LOCAL, bool LAST, class G, bool CLOSED>
+__device__ __forceinline__ void sweep(const BandAffine& B, int k,
+                                      WarpSharedAffine<G>& sh) {
+  if constexpr (G::ROWS == 2)
+    sweep_strip2<LOCAL, LAST, G, CLOSED>(B, k, sh);
+  else
+    sweep_strip<LOCAL, LAST, G, CLOSED>(B, k, sh);
 }
 
 }  // namespace band_affine_core

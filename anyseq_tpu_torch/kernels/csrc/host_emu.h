@@ -145,7 +145,7 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*, in
   return 0;
 }
 inline int cudaGetLastError() { return 0; }
-enum { cudaErrorPeerAccessAlreadyEnabled = 704 };
+enum { cudaErrorInvalidValue = 1, cudaErrorPeerAccessAlreadyEnabled = 704 };
 inline int cudaSetDevice(int) { return 0; }
 inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
 

@@ -1,6 +1,12 @@
-"""K1/K2 and K5/K5p wrappers: the single-pair DP sweep, linear
-(``csrc/wavefront.cu``) or affine (``csrc/wavefront_affine.cu``), chosen
-by the scoring's type.
+"""K1/K2 and K5/K5p wrappers: the single-pair DP sweep, linear or affine,
+chosen by the scoring's type. Score only (K1, K5), it runs as one band of
+the warp strip cores (``csrc/band.cu`` anyseq_sweep, ``csrc/band_affine.cu``
+anyseq_sweep_affine: K8's kernels at a strip width the card's width rule
+chooses per launch) from the closed-form boundary of ``linmem.top_row`` /
+``left_col`` (``affine.top_row_affine`` / ``left_col_affine``), which the
+kernels compute, or at K8's own width read from those tensors; with codes
+(K2, K5p), on the CTA strip cores of ``csrc/wavefront.cu`` and
+``csrc/wavefront_affine.cu``.
 
 :func:`score` returns the output dict of ``engine.linmem.score_rows``
 (``last_row``, ``last_col``, ``best``; with ``emit_preds`` also ``preds``,
@@ -26,6 +32,7 @@ from anyseq_tpu_torch.kernels._sweep import (
     STRIP,
     check_pair,
     reduce_best,
+    strips_of,
 )
 
 plain = linmem.score_rows
@@ -66,8 +73,13 @@ def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
     return launch(_build.library(), q, s, mode, sc, emit_preds)
 
 
-def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
-    """Launch the kernel of `lib` on q and s, wherever they lie."""
+def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool,
+           width: int = 0, grid: int = 0):
+    """Launch K1 (score only) or K2 (with codes) of `lib` on q and s,
+    wherever they lie. K1 sweeps at `width` columns a lane (0: the width
+    rule's, ``anyseq_sweep_width``), `grid` > 0 capping its warps."""
+    if not emit_preds:
+        return _sweep(lib, q, s, mode, sc, width, grid)
     m, n = int(q.shape[0]), int(s.shape[0])
     strips = -(-n // STRIP)
     i32 = {"dtype": torch.int32, "device": q.device}
@@ -78,28 +90,60 @@ def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool):
     last_col = torch.empty(m, **i32)
     bests = torch.empty((strips, 3), **i32)
     pred_stride = -(-n // linmem.CODES_PER_WORD)
-    preds = torch.empty((m, pred_stride), **i32) if emit_preds else None
+    preds = torch.empty((m, pred_stride), **i32)
     err = lib.anyseq_wavefront(
         q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
-        MODE_CODE[mode], int(emit_preds), ticket.data_ptr(),
-        bcols.data_ptr(), flags.data_ptr(), last_row.data_ptr(),
-        last_col.data_ptr(), bests.data_ptr(),
-        preds.data_ptr() if emit_preds else None, pred_stride,
+        MODE_CODE[mode], ticket.data_ptr(), bcols.data_ptr(),
+        flags.data_ptr(), last_row.data_ptr(), last_col.data_ptr(),
+        bests.data_ptr(), preds.data_ptr(), pred_stride,
         _build.stream(q.device),
     )
     _build.check(err, "wavefront")
-    _build.launches["wavefront_preds" if emit_preds else
-                    "wavefront_score"] += 1
-    outs = {"last_row": last_row, "last_col": last_col,
+    _build.launches["wavefront_preds"] += 1
+    return {"last_row": last_row, "last_col": last_col,
+            "best": reduce_best(bests), "preds": preds}
+
+
+def _sweep(lib, q, s, mode: Mode, sc: LinearScoring, width: int, grid: int):
+    """K1: the whole sweep as one band of the warp strip core
+    (``csrc/band.cu`` anyseq_sweep) from the closed-form boundary, which
+    the kernel computes, or (K8's own width) reads from its tensors."""
+    m, n = int(q.shape[0]), int(s.shape[0])
+    dev, code = q.device, MODE_CODE[mode]
+    width = width or lib.anyseq_sweep_width(m, n, code)
+    edges = ()
+    if width == band.LANE_COLS:
+        edges = (linmem.top_row(mode, sc, n, dev),
+                 linmem.left_col(mode, sc, 0, m, dev)[1])
+    row, col = (t.data_ptr() for t in edges) if edges else (None, None)
+    strips = strips_of(n, width)
+    i32 = {"dtype": torch.int32, "device": dev}
+    ticket_flags = torch.zeros(1 + strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
+    last_row = torch.empty(n, **i32)
+    last_col = torch.empty(m, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    err = lib.anyseq_sweep(
+        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
+        code, width, row, col, grid, ticket_flags.data_ptr(),
+        bcols.data_ptr(), ticket_flags.data_ptr() + 4, last_row.data_ptr(),
+        last_col.data_ptr(), bests.data_ptr(), _build.stream(dev),
+    )
+    _build.check(err, "wavefront")
+    _build.launches["wavefront_score"] += 1
+    return {"last_row": last_row, "last_col": last_col,
             "best": reduce_best(bests)}
-    if emit_preds:
-        outs["preds"] = preds
-    return outs
 
 
 def launch_affine(lib, q, s, mode: Mode, sc: AffineScoring, emit_preds: bool,
-                  start_gap: bool, emit_col_e: bool):
-    """Launch the affine kernel of `lib` on q and s, wherever they lie."""
+                  start_gap: bool, emit_col_e: bool, width: int = 0,
+                  grid: int = 0):
+    """Launch K5 (score only) or K5p (with codes) of `lib` on q and s,
+    wherever they lie; K5 at `width` columns a lane (0: the width rule's,
+    ``anyseq_sweep_affine_width``), `grid` > 0 capping its warps."""
+    if not emit_preds:
+        return _sweep_affine(lib, q, s, mode, sc, start_gap, emit_col_e,
+                             width, grid)
     m, n = int(q.shape[0]), int(s.shape[0])
     strips = -(-n // STRIP)
     i32 = {"dtype": torch.int32, "device": q.device}
@@ -112,23 +156,60 @@ def launch_affine(lib, q, s, mode: Mode, sc: AffineScoring, emit_preds: bool,
     last_col_e = torch.empty(m, **i32)
     bests = torch.empty((strips, 3), **i32)
     pred_stride = -(-n // affine.CODES4_PER_WORD)
-    preds = torch.empty((m, pred_stride), **i32) if emit_preds else None
+    preds = torch.empty((m, pred_stride), **i32)
     err = lib.anyseq_wavefront_affine(
         q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
-        sc.gap_extend, MODE_CODE[mode], int(start_gap), int(emit_preds),
-        ticket.data_ptr(), bcols.data_ptr(), bcols_e.data_ptr(),
-        flags.data_ptr(), last_row.data_ptr(), last_col.data_ptr(),
-        last_col_e.data_ptr(), bests.data_ptr(),
-        preds.data_ptr() if emit_preds else None, pred_stride,
-        _build.stream(q.device),
+        sc.gap_extend, MODE_CODE[mode], ticket.data_ptr(), bcols.data_ptr(),
+        bcols_e.data_ptr(), flags.data_ptr(), last_row.data_ptr(),
+        last_col.data_ptr(), last_col_e.data_ptr(), bests.data_ptr(),
+        preds.data_ptr(), pred_stride, _build.stream(q.device),
     )
     _build.check(err, "wavefront_affine")
-    _build.launches["wavefront_affine_preds" if emit_preds else
-                    "wavefront_affine_score"] += 1
+    _build.launches["wavefront_affine_preds"] += 1
     outs = {"last_row": last_row, "last_col": last_col,
             "best": reduce_best(bests)}
     if emit_col_e:
         outs["last_col_e"] = last_col_e
-    if emit_preds:
-        outs["preds"] = preds
+    outs["preds"] = preds
+    return outs
+
+
+def _sweep_affine(lib, q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
+                  emit_col_e: bool, width: int, grid: int):
+    """K5: the whole sweep as one band of the affine warp strip core
+    (``csrc/band_affine.cu`` anyseq_sweep_affine) from the closed-form
+    boundary, the Myers-Miller one under `start_gap`, which the kernel
+    computes, or (K8 affine's own width) reads from its tensors."""
+    m, n = int(q.shape[0]), int(s.shape[0])
+    dev, code = q.device, MODE_CODE[mode]
+    width = width or lib.anyseq_sweep_affine_width(m, n, code)
+    edges = ()
+    if width == band.AFFINE_LANE_COLS:
+        edges = (*affine.top_row_affine(mode, sc, n, start_gap, dev),
+                 *affine.left_col_affine(mode, sc, 0, m, start_gap, dev)[1:])
+    ptrs = [t.data_ptr() for t in edges] if edges else [None] * 4
+    strips = strips_of(n, width)
+    i32 = {"dtype": torch.int32, "device": dev}
+    ticket_flags = torch.zeros(1 + strips, **i32)
+    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
+    bcols_e = torch.empty(max(strips - 1, 1) * m, **i32)
+    last_row = torch.empty(n, **i32)
+    rowf_out = torch.empty(n, **i32)
+    last_col = torch.empty(m, **i32)
+    last_col_e = torch.empty(m, **i32)
+    bests = torch.empty((strips, 3), **i32)
+    err = lib.anyseq_sweep_affine(
+        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
+        sc.gap_extend, code, int(start_gap), width, *ptrs, grid,
+        ticket_flags.data_ptr(), bcols.data_ptr(), bcols_e.data_ptr(),
+        ticket_flags.data_ptr() + 4, last_row.data_ptr(),
+        rowf_out.data_ptr(), last_col.data_ptr(), last_col_e.data_ptr(),
+        bests.data_ptr(), _build.stream(dev),
+    )
+    _build.check(err, "wavefront_affine")
+    _build.launches["wavefront_affine_score"] += 1
+    outs = {"last_row": last_row, "last_col": last_col,
+            "best": reduce_best(bests)}
+    if emit_col_e:
+        outs["last_col_e"] = last_col_e
     return outs

@@ -9,13 +9,16 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    (nvidia-smi), and the nvcc build of the kernels from
    ``anyseq_tpu_torch/kernels/csrc/``; beside it, the strip-sweep
    sources built once more with ``-Xptxas -v`` (each kernel's registers
-   and spills), and the warp strip cores of K8/K10 (``band.cu``) and
-   their affine modes (``band_affine.cu``) checked to spill nothing, their
-   SASS searched for the DPX instructions of the chain (VIADDMNMX,
-   VIMNMX3).
+   and spills), and the warp strip cores of K8/K10 and K1 (``band.cu``)
+   and of their affine modes and K5 (``band_affine.cu``), at every strip
+   width, checked to spill nothing, each kernel's SASS searched for the
+   DPX instructions of the chain (VIADDMNMX, VIMNMX3).
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
-   times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K10 and
+   times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K1 and
+   K5 also forced to each strip width they have (3 modes, K5's
+   start_gap), and at ragged edges (one column, fewer than a lane holds,
+   one past a strip, one row; ge = 0 and go = 0). K10 and
    K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
    over every card where there are several: two chained bands in 3
    modes and under start_gap, and a subject that leaves the last rank
@@ -64,10 +67,13 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    100k, linear and affine), each equal to the single-device result of
    the same inputs.
 4. Each kernel against its plain version again, on the very inputs the
-   main paths gave it in phase 3 (kept as they passed), bit for bit. Each
-   whole 1 Mbp band (linear and affine) against the same band run as a
-   chain of CUT_ROWS-row bands; each rank's first band of the mesh
-   scores alone, and cut to CUT_ROWS rows against the plain version.
+   main paths gave it in phase 3 (kept as they passed), bit for bit; K1
+   and K5 with the width and warps they ran at, bound and share, also
+   alone at the largest sweep of the 100k constructions and (K5) the 100k
+   local affine score. Each whole 1 Mbp band (linear and affine) against
+   the same band run as a chain of CUT_ROWS-row bands; each rank's first
+   band of the mesh scores alone, and cut to CUT_ROWS rows against the
+   plain version.
    K8 alone on one 262,144-row band at 1,000,000 and 4,600,000 columns,
    and K8 affine at 1,000,000, 3 runs each: median, spread, grid and
    share of its bound.
@@ -96,7 +102,8 @@ SEED = 2024
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     # name: (source, the TPU kernel it replaces, the main paths that run it)
-    "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
+    # K1 and K5 run on the warp strip cores of K8 and K8 affine
+    "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/band.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear genome"),
     "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
@@ -106,7 +113,7 @@ KERNELS = {
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
                  "anyseq_tpu/kernels/band.py:1677", "linear genome mesh"),
     "wavefront_affine_score": (
-        "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
+        "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine genome"),
     "wavefront_affine_preds": (
         "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
@@ -167,7 +174,9 @@ CUT_ROWS = 2_048                 # phase 4's cut of a genome band
 # script has given it since the genome path was added
 ECOLI_SCORE = 7_807_881
 # the kernels whose core was redesigned for the H100: the warp strip cores
-REDESIGNED = {"band": "csrc/band_sweep.cuh",
+REDESIGNED = {"wavefront_score": "csrc/band_sweep.cuh",
+              "wavefront_affine_score": "csrc/band_sweep_affine.cuh",
+              "band": "csrc/band_sweep.cuh",
               "band_collective": "csrc/band_sweep.cuh",
               "band_affine": "csrc/band_sweep_affine.cuh",
               "band_collective_affine": "csrc/band_sweep_affine.cuh"}
@@ -417,6 +426,94 @@ def phase2(rng, errors):
                 lambda: swarm.score_pairs_swarm(*args),
                 lambda: swarm.plain(*args))
             record(name, err)
+
+
+def sweep_geometry(affine: bool, m: int, n: int, mode, width: int = 0):
+    """(width, grid) of a K1 / K5 launch on m x n in `mode`: the columns a
+    lane its width rule chooses on this card (or `width`), and the warps
+    it then launches."""
+    from anyseq_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    pre = "anyseq_sweep_affine" if affine else "anyseq_sweep"
+    width = width or getattr(lib, pre + "_width")(m, n, band_mode(mode))
+    return width, getattr(lib, pre + "_grid")(m, n, band_mode(mode), width)
+
+
+def phase2_sweeps(errors):
+    """K1 and K5, the score sweeps on the warp strip cores, forced to each
+    width they have against their plain versions, bit for bit: 3 modes
+    (and K5's Myers-Miller start_gap, always with the E column) at a
+    ragged 3000 x 5000; then the ragged edges in LOCAL and GLOBAL (one
+    column, fewer columns than a lane holds, one past a strip, one row),
+    and scorings with ge = 0 and go = 0 at the affine column 0. The pair
+    comes from a generator of its own, so that the main paths' pairs stay
+    those of every earlier run."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.kernels import _build, band, wavefront
+
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    sc, asc = LinearScoring(), AffineScoring(*AFFINE)
+
+    def dev_u8(b):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev)
+
+    def sweep(q, s, mode, scoring, sg, width):
+        if isinstance(scoring, AffineScoring):
+            return wavefront.launch_affine(lib, q, s, mode, scoring, False,
+                                           sg, True, width=width)
+        return wavefront.launch(lib, q, s, mode, scoring, False, width=width)
+
+    def plain(q, s, mode, scoring, sg):
+        if isinstance(scoring, AffineScoring):
+            return wavefront.plain_affine(q, s, mode, scoring, sg, True)
+        return wavefront.plain(q, s, mode, scoring)
+
+    def held(tag, q, s, mode, scoring, sg, reps):
+        affine = isinstance(scoring, AffineScoring)
+        name = "wavefront_affine_score" if affine else "wavefront_score"
+        want, plain_ms = timed(lambda: plain(q, s, mode, scoring, sg))
+        m, n = q.numel(), s.numel()
+        rule = sweep_geometry(affine, m, n, mode)[0]
+        out = []
+        for w in band.AFFINE_WIDTHS if affine else band.WIDTHS:
+            err = max_abs_err(sweep(q, s, mode, scoring, sg, w), want)
+            check(err == 0, f"{tag} {m}x{n} width {w}: kernel == plain "
+                            f"(max_abs_err {err})")
+            errors[name] = max(errors.get(name, 0), err)
+            if reps:
+                ms = cuda_ms(lambda: sweep(q, s, mode, scoring, sg, w), reps)
+                out.append(f"{w}: {ms:.3f} ms, "
+                           f"{sweep_geometry(affine, m, n, mode, w)[1]} warps")
+            else:
+                out.append(str(w))
+        print(f"{tag} {m}x{n} equal=True at widths {'; '.join(out)} "
+              f"(rule: {rule}) plain_ms={plain_ms:.1f}", flush=True)
+
+    qb, sb = related_pair(rng, 3000)
+    q, s = dev_u8(qb), dev_u8(sb + related_pair(rng, 5000 - len(sb))[0])
+    for scoring, mode, sg in (
+            [(sc, mode, False) for mode in Mode]
+            + [(asc, mode, False) for mode in Mode]
+            + [(asc, Mode.GLOBAL, True)]):
+        kname = "K5" if scoring is asc else "K1"
+        held(f"phase2 {kname} {mode.value} start_gap={sg}", q, s, mode,
+             scoring, sg, reps=3)
+    # ragged edges, and the affine chain's edges at column 0
+    edges = sorted({1, 3, 37} | {32 * w + 1 for w in
+                                 band.WIDTHS + band.AFFINE_WIDTHS})
+    for scoring in (sc, asc, AffineScoring(1, -6, -4, 0),
+                    AffineScoring(2, -1, 0, -1)):
+        kname = "K1" if scoring is sc else "K5"
+        for mode in (Mode.LOCAL, Mode.GLOBAL):
+            for m, n in [(40, w) for w in edges] + [(1, 300), (70, 1)]:
+                for sg in ([False, True] if scoring is not sc
+                           and mode is Mode.GLOBAL else [False]):
+                    held(f"phase2 {kname} edge {scoring} {mode.value} "
+                         f"start_gap={sg}", q[:m], s[:n], mode, scoring, sg,
+                         reps=0)
 
 
 # The launch function of each kernel wrapper module (K1/K2 share one, as
@@ -1093,21 +1190,34 @@ PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
 WARP_CORES = ("band.cu", "band_affine.cu")
 
 
+def kernel_args(mangled: str):
+    """(kernel name, its template arguments) of a mangled entry function:
+    the flags (LOCAL, PREDS, ...) as 0/1 digits, then, for the warp strip
+    cores, the strip shape's columns a lane and rows a step, e.g.
+    ``band_kernel``, ``1/8/1``."""
+    import re
+
+    # _Z[N<scope>]<len><name>kernelI<Lb0E|Lb1E...>[N...GeomILi8ELi1EE]E
+    k = re.search(r"\d([A-Za-z_]*kernel)(I.*?E)v", mangled)
+    if not k:
+        k = re.search(r"\d([A-Za-z_]*kernel)", mangled)
+        return (k.group(1) if k else mangled), ""
+    args = re.findall(r"L([bi])(\d+)E", k.group(2))
+    flags = "".join(v for kind, v in args if kind == "b")
+    ints = [v for kind, v in args if kind == "i"]
+    return k.group(1), "/".join([flags] + ints)
+
+
 def ptxas_entries(out: str):
-    """(kernel, template flags, registers, spill bytes) of each entry
-    function in the output of ``nvcc -Xptxas -v``."""
+    """(kernel, template arguments, mangled name, registers, spill bytes)
+    of each entry function in the output of ``nvcc -Xptxas -v``."""
     import re
 
     entries, name = [], None
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            # _Z[N<scope>]<len><name>kernelI<Lb0E|Lb1E...>E...
-            k = re.search(r"\d([A-Za-z_]*kernel)(I(?:Lb[01]E)+E)?",
-                          m.group(1))
-            name = (k.group(1) if k else m.group(1),
-                    "".join(re.findall(r"Lb([01])E", k.group(2) or ""))
-                    if k else "")
+            name = (*kernel_args(m.group(1)), m.group(1))
             spills = None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1148,22 +1258,28 @@ def build_report():
                 check(proc.returncode == 0, f"nvcc -Xptxas -v {name}:\n{out}")
                 entries = ptxas_entries(out)
                 check(entries, f"ptxas reported the kernels of {name}")
-                for kernel, flags, regs, spills in entries:
+                dpx = {}
+                if name in WARP_CORES:
+                    sass = subprocess.run(
+                        [os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                         "-sass", obj], capture_output=True, text=True,
+                        check=True).stdout
+                    # one section a kernel: "Function : <mangled name>"
+                    for part in sass.split("Function : ")[1:]:
+                        dpx[part.split()[0]] = {
+                            op: part.count(op)
+                            for op in ("VIADDMNMX", "VIMNMX3")}
+                for kernel, flags, mangled, regs, spills in entries:
+                    counts = dpx.get(mangled)
                     print(f"phase1 ptxas {name} {kernel}<{flags}>: {regs} "
-                          f"registers, {spills} bytes spilled", flush=True)
-                    check(name not in WARP_CORES or spills == 0,
-                          f"{name} {kernel}<{flags}> spills nothing")
-                if name not in WARP_CORES:
-                    continue
-                sass = subprocess.run(
-                    [os.path.join(os.path.dirname(nvcc), "cuobjdump"),
-                     "-sass", obj], capture_output=True, text=True,
-                    check=True).stdout
-                counts = {op: sass.count(op) for op in ("VIADDMNMX",
-                                                        "VIMNMX3")}
-                print(f"phase1 SASS {name} DPX instructions "
-                      f"{json.dumps(counts)}", flush=True)
-                check(all(counts.values()), f"{name}'s SASS holds DPX")
+                          f"registers, {spills} bytes spilled"
+                          + (f", DPX {json.dumps(counts)}" if counts
+                             else ""), flush=True)
+                    if name in WARP_CORES:
+                        check(spills == 0,
+                              f"{name} {kernel}<{flags}> spills nothing")
+                        check(counts and all(counts.values()),
+                              f"{name} {kernel}<{flags}>'s SASS holds DPX")
     return report
 
 
@@ -1701,6 +1817,16 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         q, s, ms, ns = args[1:5]
         return f"B={q.shape[0]} up to {int(ms.max())}x{int(ns.max())}"
 
+    def geometry(tag, name, call, fn, args, ms):
+        """A K1 / K5 launch's width and warps, bound and share."""
+        m, n = args[1].numel(), args[2].numel()
+        width, grid = sweep_geometry(fn == "wavefront_affine", m, n, args[3])
+        b_ms, by = bound(fn, args, sm_clock_mhz)
+        print(f"phase4 {tag} {name} {' '.join(map(str, call))} {m}x{n} "
+              f"width={width} grid={grid} kernel_ms={ms:.3f} "
+              f"gcups={m * n / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
+              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+
     def run(name, tag, call, fn, args, report=False):
         label = f"phase4 {tag} {name} {' '.join(map(str, call))} " \
                 f"{shape(fn, args)}"
@@ -1709,6 +1835,14 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         errors[name] = max(errors.get(name, 0), err)
         if report:
             timings[name] = (ms, plain_ms, *bound(fn, args, sm_clock_mhz))
+        if fn.startswith("wavefront") and not preds(args):
+            geometry(tag, name, call, fn, args, ms)
+
+    def alone(name, tag, call, fn, args):
+        """A K1 / K5 launch timed alone: the plain version would take
+        minutes there."""
+        ms = cuda_ms(lambda: launcher(fn)(*args), 3)
+        geometry(f"{tag} alone", name, call, fn, args, ms)
 
     def preds(args):
         return args[5]
@@ -1719,14 +1853,16 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     hb = ("align", 100_000, "semiglobal", "LinearScoring")
     a_fulltb = ("align_full_tb", 10_000, "global", "AffineScoring")
     mm = ("align", 100_000, "semiglobal", "AffineScoring")
-    k1_hb = min(kept_of(hb, "wavefront"), key=cells)
+    k1_hb = sorted(kept_of(hb, "wavefront", lambda a: not preds(a)),
+                   key=cells)
     k3_hb = max(kept_of(hb, "walk"), key=lambda args: args[1].shape[0])
     k4_hb = kept_of(hb, "lastcols")
     run("wavefront_score", "K1", score_1k, "wavefront",
         kept_of(score_1k, "wavefront")[0])
     run("wavefront_score", "K1", score_100k, "wavefront",
         kept_of(score_100k, "wavefront")[0], report=True)
-    run("wavefront_score", "K1", hb, "wavefront", k1_hb)
+    run("wavefront_score", "K1", hb, "wavefront", k1_hb[0])
+    alone("wavefront_score", "K1", hb, "wavefront", k1_hb[-1])
     run("wavefront_preds", "K2", fulltb, "wavefront",
         kept_of(fulltb, "wavefront")[0], report=True)
     run("walk", "K3", fulltb, "walk", kept_of(fulltb, "walk")[0],
@@ -1735,11 +1871,13 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     run("lastcols", "K4", hb, "lastcols", k4_hb[0], report=True)
     run("lastcols", "K4", hb, "lastcols", k4_hb[-1])
 
-    k5_mm = min(kept_of(mm, "wavefront_affine"), key=cells)
+    k5_mm = sorted(kept_of(mm, "wavefront_affine", lambda a: not preds(a)),
+                   key=cells)
     k6_mm = max(kept_of(mm, "walk_affine"), key=lambda args: args[1].shape[0])
     k5l_mm = kept_of(mm, "lastcols_affine")
-    run("wavefront_affine_score", "K5", mm, "wavefront_affine", k5_mm,
+    run("wavefront_affine_score", "K5", mm, "wavefront_affine", k5_mm[0],
         report=True)
+    alone("wavefront_affine_score", "K5", mm, "wavefront_affine", k5_mm[-1])
     run("wavefront_affine_preds", "K5p", a_fulltb, "wavefront_affine",
         kept_of(a_fulltb, "wavefront_affine", preds)[0], report=True)
     run("walk_affine", "K6", a_fulltb, "walk_affine",
@@ -1749,15 +1887,9 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         report=True)
     run("lastcols_affine", "K5L", mm, "lastcols_affine", k5l_mm[-1])
 
-    # K5 alone at the affine 100k local score: the plain version would
-    # take minutes there, so only the kernel's time
-    args = kept_of(("align_score", 100_000, "local", "AffineScoring"),
-                   "wavefront_affine")[0]
-    ms = cuda_ms(lambda: launcher("wavefront_affine")(*args), 3)
-    print(f"phase4 K5 wavefront_affine_score align_score 100000 local "
-          f"AffineScoring {shape('wavefront_affine', args)} "
-          f"kernel_ms={ms:.3f} gcups={cells(args) / ms / 1e6:.2f}",
-          flush=True)
+    a_score_100k = ("align_score", 100_000, "local", "AffineScoring")
+    alone("wavefront_affine_score", "K5", a_score_100k, "wavefront_affine",
+          kept_of(a_score_100k, "wavefront_affine")[0])
 
     def largest(call, fn):
         return max(kept_of(call, fn), key=lambda args: args[1].shape[0])
@@ -1812,6 +1944,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     timings, errors, kept, whole = {}, {}, [], {}
     phase2(rng, errors)
+    phase2_sweeps(errors)
     phase2_band(rng, errors)
     phase2_collective(rng, errors)
     phase2_swarm_affine_codes(rng, errors)

@@ -613,3 +613,176 @@ def test_band_collective_kernel_empty_last_rank(emu_collective, k, m, n,
     assert got.keys() == want.keys()
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+# --- K1 / K5, the single-pair score sweeps, on the warp strip cores at
+# each strip width (csrc/band.cu anyseq_sweep, csrc/band_affine.cu
+# anyseq_sweep_affine) ---
+
+_SWEEP_WIDTHS = ([("K1", w) for w in band.WIDTHS]
+                 + [("K5", w) for w in band.AFFINE_WIDTHS])
+
+
+def _check_sweep(lib, q, s, mode, sc, width, start_gap=False, grid=0):
+    """K1 / K5 at `width` columns a lane against the plain version (K5
+    with the E last column), every output bit for bit."""
+    if isinstance(sc, AffineScoring):
+        got = wavefront.launch_affine(lib, q, s, mode, sc, False, start_gap,
+                                      True, width=width, grid=grid)
+        want = wavefront.plain_affine(q, s, mode, sc, start_gap, True)
+    else:
+        got = wavefront.launch(lib, q, s, mode, sc, False, width=width,
+                               grid=grid)
+        want = wavefront.plain(q, s, mode, sc)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), (k, width, start_gap, grid)
+    return got
+
+
+@pytest.mark.parametrize("shape", ["one column", "below a lane",
+                                   "one row past a strip", "past a strip",
+                                   "two full strips", "three strips"])
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("kernel,width", _SWEEP_WIDTHS)
+def test_sweep_kernel_widths(emu_card, emu_lib, kernel, width, mode, shape):
+    """K1 and K5 forced to each width they have, 3 modes (K5 at both
+    bench scorings, GLOBAL also under the Myers-Miller start_gap): one
+    column, fewer columns than a lane holds, one row, one column past a
+    strip (rows past two 32-row chunks), two strips whose last is full
+    (column n - 1 in the last lane's last column), and three ragged
+    strips, also swept by one warp (an emulated card of 2 SMs x 4
+    CTAs)."""
+    emu_card(2, 4)
+    strip = 32 * width
+    m, n = {"one column": (5, 1), "below a lane": (33, max(width - 1, 1)),
+            "one row past a strip": (1, strip + 1),
+            "past a strip": (70, strip + 1),
+            "two full strips": (45, 2 * strip),
+            "three strips": (40, 2 * strip + 17)}[shape]
+    rng = np.random.default_rng(m * n + width)
+    q, s = _seq(rng, m), _seq(rng, n)
+    grids = [0, 1] if shape == "three strips" else [0]
+    for sc in ASC if kernel == "K5" else [SC]:
+        for start_gap in ([False, True] if kernel == "K5"
+                          and mode is Mode.GLOBAL else [False]):
+            for grid in grids:
+                _check_sweep(emu_lib, q, s, mode, sc, width, start_gap, grid)
+
+
+def _tie_cases(width):
+    """(plants, (i, j) of the first maximum) of LOCAL ties for strips of
+    `width` columns a lane: inside one lane (one row), across lanes,
+    across strips, and an earlier row against an earlier column."""
+    lane, strip = width, 32 * width
+    at = strip + 3 * lane              # the first column of a lane
+    return {
+        # (AC)*6 in the query, (AC)*7 in the subject: twelve matches end at
+        # columns at and at + 2 of one row, in one lane
+        "in a lane": ([(b"AC" * 6, 40, at), (b"AC" * 7, None, at + 2)],
+                      (40, at)),
+        "across lanes": ([(_X, 50, strip + 5 * lane - 1),
+                          (_X, 50, strip + 2 * lane - 1)],
+                         (50, strip + 2 * lane - 1)),
+        "earlier row, later lane": ([(_X, 40, strip + 6 * lane - 1),
+                                     (_Y, 60, strip + lane - 1)],
+                                    (40, strip + 6 * lane - 1)),
+        "across strips": ([(_X, 40, 2 * strip + 20), (_X, 40, 31)],
+                          (40, 31)),
+        "earlier row, later strip": ([(_X, 40, 2 * strip + 30),
+                                      (_Y, 60, strip + 30)],
+                                     (40, 2 * strip + 30)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_tie_cases(4)))
+@pytest.mark.parametrize("kernel,width", _SWEEP_WIDTHS)
+def test_sweep_kernel_local_ties(emu_lib, kernel, width, case):
+    """Equal LOCAL maxima planted inside one lane, across lanes and across
+    strips, at each width of K1 and K5: the first in row-major order."""
+    plants, want = _tie_cases(width)[case]
+    q, s = _planted([p for p in plants if p[1] is not None],
+                    n=3 * 32 * width)
+    for text, qi, sj in plants:
+        if qi is None:     # a subject plant only
+            s[sj - len(text) + 1:sj + 1] = torch.frombuffer(
+                bytearray(text), dtype=torch.uint8)
+        else:              # a symbol of neither sequence on either side
+            q[qi - len(text)] = q[qi + 1] = ord("N")
+    sc = (AffineScoring(1, -100, -100, -100) if kernel == "K5"
+          else LinearScoring(1, -100, -100))
+    got = _check_sweep(emu_lib, q, s, Mode.LOCAL, sc, width)
+    assert got["best"].tolist() == [12, *want]
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("sc", ASC_EDGES, ids=str)
+@pytest.mark.parametrize("width", band.AFFINE_WIDTHS)
+def test_sweep_kernel_affine_column0(emu_lib, width, sc, mode):
+    """K5 at each width with a free extension (ge = 0) and a free opening
+    (go = 0): E's NEG + go floor at column 0 (also under start_gap), the E
+    column out of the lane that holds column n - 1 (one column, one past a
+    strip) and the chain's carry E - go - ge where go + ge is 0 or
+    -1."""
+    rng = np.random.default_rng(width + 7)
+    for m, n in ((30, 1), (30, 32 * width + 1), (70, 100)):
+        q, s = _seq(rng, m), _seq(rng, n)
+        for start_gap in ([False, True] if mode is Mode.GLOBAL
+                          else [False]):
+            _check_sweep(emu_lib, q, s, mode, sc, width, start_gap)
+
+
+def test_sweep_kernel_refuses_other_widths(emu_lib):
+    """A width K1 or K5 does not have (K1 has no 4 columns a lane, which
+    K5 has): the launch is refused, and the wrapper raises."""
+    q = _seq(np.random.default_rng(0), 10)
+    for width in (12, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            wavefront.launch(emu_lib, q, q, Mode.LOCAL, SC, False,
+                             width=width)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wavefront.launch_affine(emu_lib, q, q, Mode.LOCAL, ASC[0], False,
+                                False, False, width=32)
+
+
+@pytest.mark.parametrize("kernel,sms,ctas,h,n,want", [
+    # K1, one row a lane a step: 8 columns a lane at the 100k pair, the
+    # 100k construction's passes and halves and the 1k pair; 16 where 8
+    # would give twice the warps 2 an SM asks for; the 512 Ki x 1 M
+    # one-piece sweep at 32 (977 warps)
+    ("K1", 132, 4, 100_000, 100_064, 8),
+    ("K1", 132, 4, 50_032, 100_000, 8),
+    ("K1", 132, 4, 25_016, 50_032, 8),     # no width fills: least fill
+    ("K1", 132, 4, 1000, 1011, 8),
+    ("K1", 132, 4, 100_000, 200_000, 16),
+    ("K1", 132, 4, 524_288, 1_000_000, 32),
+    ("K1", 132, 1, 524_288, 1_000_000, 32),
+    ("K1", 132, 4, 5, 100_000, 32),        # every fill too long: widest
+    ("K1", 132, 4, 1, 1, 8),
+    ("K1", 4, 4, 2000, 20_000, 32),        # a small card fills sooner
+    # K5, two rows a lane a step: 8 at the 100k pair and the 1k pair, 4 at
+    # the 100k construction's halves, 16 at 512 Ki x 1 M
+    ("K5", 132, 4, 100_000, 100_064, 8),
+    ("K5", 132, 4, 100_000, 50_032, 4),
+    ("K5", 132, 4, 50_032, 25_016, 4),
+    ("K5", 132, 4, 1000, 1011, 8),
+    ("K5", 132, 4, 524_288, 1_000_000, 16),
+    ("K5", 132, 1, 524_288, 1_000_000, 16),
+    ("K5", 132, 4, 5, 100_000, 16),
+    ("K5", 4, 4, 2000, 20_000, 16),
+])
+def test_sweep_width_rule(emu_card, emu_lib, kernel, sms, ctas, h, n, want):
+    """anyseq_sweep_width and anyseq_sweep_affine_width (one rule,
+    band_sweep.cuh width_of) on emulated cards: the widest width whose
+    launch runs 2 warps an SM, else the narrowest whose fill (strips - 1)
+    x lag is at most half a strip's steps, else the widest; the grid
+    reported for the chosen width is that of grid_of."""
+    emu_card(sms, ctas)
+    width = (emu_lib.anyseq_sweep_affine_width if kernel == "K5"
+             else emu_lib.anyseq_sweep_width)
+    grid = (emu_lib.anyseq_sweep_affine_grid if kernel == "K5"
+            else emu_lib.anyseq_sweep_grid)
+    for mode in Mode:
+        assert width(h, n, band.MODE_CODE[mode]) == want, mode
+        assert grid(h, n, band.MODE_CODE[mode], want) >= 1
+    assert grid(h, n, 0, 12) == -1

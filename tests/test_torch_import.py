@@ -185,12 +185,16 @@ def test_every_kernel_has_a_launch_count():
         "wavefront_affine_score", "wavefront_affine_preds",
         "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
         "band", "band_affine", "band_collective", "band_collective_affine"}
-    # one launching entry a source, the peer-access switch of the
-    # collective, the grid queries of K8/K10 and of their affine modes and
-    # the affine strip width (which launch nothing)
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 4 == 13
+    # one launching entry a source and K1's and K5's on the warp strip
+    # cores, the peer-access switch of the collective, the grid queries of
+    # K8/K10 and of their affine modes, the affine strip width, and the
+    # width and grid queries of K1 and K5 (which launch nothing)
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 10 == 19
     assert {"anyseq_band_grid", "anyseq_band_affine_grid",
-            "anyseq_band_affine_strip"} <= set(_build.SIGNATURES)
+            "anyseq_band_affine_strip", "anyseq_sweep", "anyseq_sweep_affine",
+            "anyseq_sweep_width", "anyseq_sweep_affine_width",
+            "anyseq_sweep_grid", "anyseq_sweep_affine_grid"} <= set(
+                _build.SIGNATURES)
 
 
 def test_wrappers_check_types():

@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""K1 and K5, the single-pair score sweeps (``kernels/wavefront.py``), of
+two checkouts on one CUDA card, in turns; and this tree's sweep over the
+strip widths that sets their width rule.
+
+    python3 tools/k1_ab.py --parent DIR [--reps 3]
+
+DIR is an unpacked older tree. Each tree (older, this, this, older; each
+a process of its own that builds its tree's kernels) times K1 and K5
+alone through its own wrappers (``wavefront.launch`` / ``launch_affine``,
+score only, at the width its rule chooses) at the main path's shapes: the
+1k global score, the 100k local scores (seeded related pairs, as
+``chip_smoke.py`` makes them), every score sweep of the 100k semiglobal
+``align`` (linear and affine: the endpoint passes and the halves, taken
+from the tree's own run of it) and a 524,288 x 1,000,000 one-piece global
+sweep (linear also as one K8 band from the boundary's tensors); K8 on a
+262,144-row band at 1,000,000 and 4,600,000 columns and K8
+affine at 1,000,000, to show them unchanged; the 1 Mbp global score as one
+K1 sweep and as the chain of four K8 bands that ``align_score`` runs
+(ROADMAP R2); and the public calls, each cold then warm (host walls to
+the result): ``align_score`` 1k global, 100k local (linear, affine), 1 Mbp
+global linear and local affine, 4.6 Mbp global; ``align`` 100k
+semiglobal (linear, affine) and 1 Mbp semiglobal. The outputs of all runs
+must be equal. Prints one JSON line a measurement, then the medians with
+their spreads and the card's name and power limit.
+
+    python3 tools/k1_ab.py --sweep [--reps 3]
+
+runs this tree's K1 and K5 forced to each width they have, at the same
+shapes, with the width and warps the rule chooses beside each time;
+outputs held equal across widths.
+
+    python3 tools/k1_ab.py --check
+
+prints ptxas's registers, spills and DPX instructions of the strip
+sources, then holds K1 and K5 at every width to their plain versions
+(``chip_smoke.py`` phases 1 and 2 for these kernels);
+``--sass NAMES [--sass-dir DIR]`` writes the SASS of the K1 / K5 kernels
+whose mangled names hold one of NAMES (comma-separated) to DIR (default
+``anyseq_tpu_torch/_build/sass``). The options combine in one call.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEED = 2024
+BAND_ROWS = 262_144
+TALL = (524_288, 1_000_000)       # the tallest one-piece sweep, x 1 M
+GENOME_BP = 1_000_000
+ECOLI_BP = 4_600_000
+AFFINE = (2, -1, -3, -1)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def checksum(out) -> list:
+    """Sums of a sweep's outputs and its best, to hold runs equal."""
+    return [int(out[k].long().sum()) for k in sorted(out) if k != "best"] \
+        + out["best"].tolist()
+
+
+def timed_runs(fn, reps: int):
+    """`reps` runs of fn() timed with CUDA events, after one warm-up, and
+    the last output's checksum."""
+    import torch
+
+    fn()
+    runs, check = [], None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(round(start.elapsed_time(end), 3))
+        check = checksum(out)
+        del out
+    return runs, check
+
+
+def emit(**line) -> None:
+    line["after"] = smi("clocks.sm,power.draw,temperature.gpu")
+    if "runs_ms" in line:
+        line["median_ms"] = float(np.median(line["runs_ms"]))
+    print(json.dumps(line), flush=True)
+
+
+def import_tree(tree: str):
+    """The tree's package, its kernels built."""
+    sys.path.insert(0, tree)
+    from anyseq_tpu_torch.kernels import _build
+
+    if not _build.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"imported {_build.__file__}, not {tree}'s")
+    return _build.library()
+
+
+def sweep_shapes(dev):
+    """(name, q, s, mode, scoring, start_gap, emit_col_e) of the score
+    sweeps of the main path: the 1k global score, the 100k local scores,
+    every sweep of the 100k semiglobal ``align`` (linear and affine, as
+    this tree's run of it launches them) and the tall one-piece sweep."""
+    import torch
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.core.types import Mode, as_tensor
+    from anyseq_tpu_torch.kernels import wavefront
+    from chip_smoke import related_pair
+
+    sc, asc = pt.LinearScoring(), pt.AffineScoring(*AFFINE)
+    rng = np.random.default_rng(SEED)
+    q1k, s1k = related_pair(rng, 1000)
+    q100, s100 = related_pair(rng, 100_000)
+    shapes = []
+    for scoring in (sc, asc):
+        shapes.append(("score 1k global", as_tensor(q1k, dev),
+                       as_tensor(s1k, dev), Mode.GLOBAL, scoring, False,
+                       False))
+        shapes.append(("score 100k local", as_tensor(q100, dev),
+                       as_tensor(s100, dev), Mode.LOCAL, scoring, False,
+                       False))
+    # the 100k align's sweeps, from a run with its launches kept
+    real = wavefront.launch, wavefront.launch_affine
+    kept = []
+
+    def keep(affine):
+        def launch(lib, q, s, mode, scoring, emit_preds, *rest, **kw):
+            if not emit_preds:
+                sg, col_e = rest[:2] if affine else (False, False)
+                kept.append((q.clone(), s.clone(), mode, scoring, sg, col_e))
+            return real[affine](lib, q, s, mode, scoring, emit_preds, *rest,
+                                **kw)
+        return launch
+
+    wavefront.launch, wavefront.launch_affine = keep(False), keep(True)
+    try:
+        for scoring in (sc, asc):
+            pt.align(q100, s100, "semiglobal", scoring, device=dev)
+    finally:
+        wavefront.launch, wavefront.launch_affine = real
+    seen = set()
+    for q, s, mode, scoring, sg, col_e in kept:
+        key = (q.numel(), s.numel(), mode, type(scoring), sg)
+        if key not in seen:
+            seen.add(key)
+            shapes.append((f"align 100k semiglobal {mode.value}"
+                           + (" start_gap" if sg else ""), q, s, mode,
+                           scoring, sg, col_e))
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    tall = [torch.from_numpy(alpha[rng.integers(0, 4, k)]).to(dev)
+            for k in TALL]
+    for scoring in (sc, asc):
+        shapes.append(("tall one-piece global", *tall, Mode.GLOBAL, scoring,
+                       False, False))
+    return shapes
+
+
+def sweep_fn(lib, q, s, mode, scoring, sg, col_e, **kw):
+    from anyseq_tpu_torch.core.types import AffineScoring
+    from anyseq_tpu_torch.kernels import wavefront
+
+    if isinstance(scoring, AffineScoring):
+        return lambda: wavefront.launch_affine(lib, q, s, mode, scoring,
+                                               False, sg, col_e, **kw)
+    return lambda: wavefront.launch(lib, q, s, mode, scoring, False, **kw)
+
+
+def kernel_name(scoring) -> str:
+    return "K5" if hasattr(scoring, "gap_open") else "K1"
+
+
+def run_widths(tree: str, reps: int) -> None:
+    """This tree's K1 and K5 at every width, at the main path's shapes."""
+    lib = import_tree(tree)
+    from anyseq_tpu_torch.kernels import band
+    from anyseq_tpu_torch.kernels._sweep import MODE_CODE
+
+    for name, q, s, mode, scoring, sg, col_e in sweep_shapes("cuda"):
+        affine = kernel_name(scoring) == "K5"
+        m, n = q.numel(), s.numel()
+        pre = "anyseq_sweep_affine" if affine else "anyseq_sweep"
+        rule = getattr(lib, pre + "_width")(m, n, MODE_CODE[mode])
+        widths = band.AFFINE_WIDTHS if affine else band.WIDTHS
+        if m >= TALL[0]:
+            # the boundary columns take (strips - 1) x m ints: the widest two
+            widths = widths[:1 if affine else 2]
+        for w in widths:
+            runs, check = timed_runs(sweep_fn(lib, q, s, mode, scoring, sg,
+                                              col_e, width=w), reps)
+            emit(tree=tree, kernel=kernel_name(scoring), shape=name, m=m,
+                 n=n, width=w, rule=rule,
+                 grid=getattr(lib, pre + "_grid")(m, n, MODE_CODE[mode], w),
+                 runs_ms=runs, check=check)
+
+
+def run_tree(tree: str, reps: int) -> None:
+    """One tree's K1 / K5 at its own widths, K8, the R2 pair and the
+    public calls."""
+    lib = import_tree(tree)
+    import torch
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.core.types import Mode, as_tensor
+    from anyseq_tpu_torch.engine import affine as aff
+    from anyseq_tpu_torch.engine import linmem
+    from anyseq_tpu_torch.kernels import band, wavefront
+    from chip_smoke import related_pair
+
+    dev = "cuda"
+    for name, q, s, mode, scoring, sg, col_e in sweep_shapes(dev):
+        runs, check = timed_runs(sweep_fn(lib, q, s, mode, scoring, sg,
+                                          col_e), reps)
+        emit(tree=tree, kernel=kernel_name(scoring), shape=name,
+             m=q.numel(), n=s.numel(), runs_ms=runs, check=check)
+        if name.startswith("tall") and kernel_name(scoring) == "K1":
+            # the same sweep as one K8 band from the boundary's tensors
+            m, n = q.numel(), s.numel()
+            args = (q, s, linmem.top_row(mode, scoring, n, q.device),
+                    *linmem.left_col(mode, scoring, 0, m, q.device), mode,
+                    scoring)
+            runs, check = timed_runs(lambda: band.launch(lib, *args), reps)
+            emit(tree=tree, kernel="K8", shape=name, m=m, n=n,
+                 runs_ms=runs, check=check)
+            del args
+
+    # K8 and K8 affine on one band, as tools/k8_ab.py runs them
+    rng = np.random.default_rng(0)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = torch.from_numpy(alpha[rng.integers(0, 4, BAND_ROWS)]).to(dev)
+    s_all = torch.from_numpy(alpha[rng.integers(0, 4, ECOLI_BP)]).to(dev)
+    sc, asc = pt.LinearScoring(), pt.AffineScoring(*AFFINE)
+    for n in (GENOME_BP, ECOLI_BP):
+        s = s_all[:n].contiguous()
+        args = (q, s, linmem.top_row(Mode.GLOBAL, sc, n, q.device),
+                *linmem.left_col(Mode.GLOBAL, sc, 0, BAND_ROWS, q.device),
+                Mode.GLOBAL, sc)
+        runs, check = timed_runs(lambda: band.launch(lib, *args), reps)
+        emit(tree=tree, kernel="K8", shape="band global", m=BAND_ROWS, n=n,
+             runs_ms=runs, check=check)
+    s = s_all[:GENOME_BP].contiguous()
+    args = (q, s, *aff.top_row_affine(Mode.LOCAL, asc, GENOME_BP, False,
+                                      q.device),
+            *aff.left_col_affine(Mode.LOCAL, asc, 0, BAND_ROWS, False,
+                                 q.device), Mode.LOCAL, asc)
+    runs, check = timed_runs(lambda: band.launch_affine(lib, *args), reps)
+    emit(tree=tree, kernel="K8 affine", shape="band local", m=BAND_ROWS,
+         n=GENOME_BP, runs_ms=runs, check=check)
+    del s_all, args
+
+    # R2: the 1 Mbp global score as one K1 sweep and as the chain of bands
+    rng = np.random.default_rng(SEED + 3)
+    q1, s1 = (as_tensor(x, dev) for x in related_pair(rng, GENOME_BP))
+    runs, check = timed_runs(
+        lambda: wavefront.launch(lib, q1, s1, Mode.GLOBAL, sc, False), reps)
+    emit(tree=tree, kernel="K1", shape="R2 1 Mbp global one piece",
+         m=q1.numel(), n=s1.numel(), runs_ms=runs, check=check)
+    runs, check = timed_runs(
+        lambda: band.score_pair_chained(q1, s1, Mode.GLOBAL, sc), reps)
+    emit(tree=tree, kernel="K8 chain", shape="R2 1 Mbp global chain",
+         m=q1.numel(), n=s1.numel(), runs_ms=runs, check=check)
+    del q1, s1
+    public_calls(tree)
+
+
+def public_calls(tree: str) -> None:
+    """The public calls of PERF.md section 5 that run K1, K5 or K8, each
+    cold then warm: host walls to the result."""
+    import torch
+
+    import anyseq_tpu_torch as pt
+    from chip_smoke import related_pair
+
+    sc, asc = pt.LinearScoring(), pt.AffineScoring(*AFFINE)
+    rng = np.random.default_rng(SEED)
+    q1k, s1k = related_pair(rng, 1000)
+    q100, s100 = related_pair(rng, 100_000)
+    q1m, s1m = related_pair(rng, GENOME_BP)
+    q46, s46 = related_pair(rng, ECOLI_BP)
+
+    def score(q, s, mode, scoring):
+        return lambda: pt.align_score(q, s, mode, scoring, device="cuda")
+
+    def aligned(q, s, mode, scoring):
+        def call():
+            a = pt.align(q, s, mode, scoring, device="cuda")
+            return [a.score, *a.start]
+        return call
+
+    calls = (
+        ("align_score 1k global", score(q1k, s1k, "global", sc), 4),
+        ("align_score 100k local", score(q100, s100, "local", sc), 2),
+        ("align_score 100k local affine", score(q100, s100, "local", asc),
+         2),
+        ("align 100k semiglobal", aligned(q100, s100, "semiglobal", sc), 2),
+        ("align 100k semiglobal affine",
+         aligned(q100, s100, "semiglobal", asc), 2),
+        ("align_score 1 Mbp global", score(q1m, s1m, "global", sc), 2),
+        ("align_score 1 Mbp local affine", score(q1m, s1m, "local", asc),
+         2),
+        ("align 1 Mbp semiglobal", aligned(q1m, s1m, "semiglobal", sc), 2),
+        ("align_score 4.6 Mbp global", score(q46, s46, "global", sc), 1),
+    )
+    for name, fn, times in calls:
+        walls, out = [], None
+        for _ in range(times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t0, 6))
+        emit(tree=tree, call=name, walls_s=walls, check=out)
+
+
+def child(args) -> list:
+    """One process of a plan; its JSON lines."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                         capture_output=True, text=True)
+    sys.stdout.write(out.stdout)
+    if out.returncode:
+        sys.stderr.write(out.stderr)
+        raise SystemExit(out.returncode)
+    return [json.loads(x) for x in out.stdout.splitlines()]
+
+
+def equal_outputs(lines) -> bool:
+    """Each measurement's outputs equal across its runs."""
+    seen: dict = {}
+    for x in lines:
+        key = (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
+               x.get("call"))
+        seen.setdefault(key, set()).add(json.dumps(x["check"]))
+    bad = {k: v for k, v in seen.items() if len(v) > 1}
+    if bad:
+        print(f"k1_ab: outputs differ: {bad}", file=sys.stderr)
+    return not bad
+
+
+def summary(lines, groups) -> None:
+    """Median and spread of each measurement, by `groups` (a key of the
+    lines: tree, or width)."""
+    print(f"medians ({smi('name,power.limit')}):", flush=True)
+    keys = dict.fromkeys((x.get("kernel"), x.get("shape"), x.get("m"),
+                          x.get("n"), x.get("call")) for x in lines)
+    for key in keys:
+        got = [x for x in lines
+               if (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
+                   x.get("call")) == key]
+        for group in dict.fromkeys(tuple(x.get(g) for g in groups)
+                                   for x in got):
+            sel = [x for x in got
+                   if tuple(x.get(g) for g in groups) == group]
+            label = " ".join(str(k) for k in key if k is not None)
+            tag = " ".join(f"{g}={v}" for g, v in zip(groups, group))
+            if "walls_s" in sel[0]:
+                walls = [x["walls_s"] for x in sel]
+                print(f"{label} {tag}: walls_s {walls}", flush=True)
+                continue
+            runs = [r for x in sel for r in x["runs_ms"]]
+            med = float(np.median(runs))
+            extra = (f" grid={sel[0]['grid']} rule={sel[0]['rule']}"
+                     if "grid" in sel[0] else "")
+            print(f"{label} {tag}{extra}: median_ms={med:.3f} "
+                  f"spread={(max(runs) - min(runs)) / med:.3f} runs={runs}",
+                  flush=True)
+
+
+def sass(kernels: str, out_dir: str) -> None:
+    """The SASS of this tree's K1 / K5 instantiations whose mangled names
+    hold each of `kernels` (comma-separated substrings), from an nvcc build
+    of band.cu and band_affine.cu, into `out_dir`."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from anyseq_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("band.cu", "band_affine.cu"):
+            obj = os.path.join(tmp, name + ".o")
+            subprocess.run([nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj,
+                            str(_build.CSRC / name)], check=True)
+            dump = subprocess.run(
+                [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                 obj], capture_output=True, text=True, check=True).stdout
+            for part in dump.split("Function : ")[1:]:
+                fn = part.split()[0]
+                if any(k in fn for k in kernels.split(",")):
+                    path = os.path.join(out_dir, f"sass_{fn}.txt")
+                    with open(path, "w") as f:
+                        f.write(part)
+                    print(f"sass {fn}: {part.count(chr(10))} lines -> "
+                          f"{path}", flush=True)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent")
+    p.add_argument("--sweep", action="store_true")
+    p.add_argument("--check", action="store_true")
+    p.add_argument("--sass", help="mangled-name substrings of kernels "
+                   "whose SASS to write to --sass-dir")
+    p.add_argument("--sass-dir", default=os.path.join(
+        ROOT, "anyseq_tpu_torch", "_build", "sass"))
+    p.add_argument("--reps", type=int, default=3)
+    # one process of a plan: a tree's run (--tree), or this tree at every
+    # width (--widths)
+    p.add_argument("--tree")
+    p.add_argument("--widths", action="store_true")
+    a = p.parse_args()
+    sys.path.insert(0, ROOT)
+    if a.widths:
+        run_widths(ROOT, a.reps)
+        return 0
+    if a.tree:
+        run_tree(os.path.abspath(a.tree), a.reps)
+        return 0
+    print(smi("name,power.limit"), flush=True)
+    if a.sass:
+        sass(a.sass, a.sass_dir)
+    if a.check:
+        import chip_smoke as cs
+
+        cs.build_report()()
+        errors: dict = {}
+        cs.phase2_sweeps(errors)
+        print(f"check: K1 and K5 at every width equal to their plain "
+              f"versions {errors}", flush=True)
+    if a.sweep:
+        lines = child(["--widths", "--reps", str(a.reps)])
+        if not equal_outputs(lines):
+            return 1
+        summary(lines, ("width",))
+    if a.parent:
+        parent = os.path.abspath(a.parent)
+        lines = []
+        for tree in (parent, ROOT, ROOT, parent):
+            lines += child(["--tree", tree, "--reps", str(a.reps)])
+        if not equal_outputs(lines):
+            return 1
+        for x in lines:
+            x["which"] = "older" if x["tree"] == parent else "this"
+        summary(lines, ("which",))
+    print("k1_ab ok: outputs equal", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of anyseq_tpu_torch's batch and genome calls goes, on
-one CUDA card.
+"""Where the time of anyseq_tpu_torch's single-pair, batch and genome
+calls goes, on one CUDA card.
 
     python3 tools/profile_torch.py
 
-For each batch call of ``chip_smoke.py``'s batch path (the same seeded
-pairs), and for its 1 Mbp genome calls (``align_score`` global linear
-and local affine, chained K8 bands; ``align`` semiglobal linear): one
+For the single-pair calls of ``chip_smoke.py``'s linear and affine paths
+(``align_score`` 1k global and 100k local, ``align`` 100k semiglobal;
+seeded related pairs made as it makes them), each batch call of its batch
+path (the same seeded pairs), and its 1 Mbp genome calls
+(``align_score`` global linear and local affine, chained K8 bands;
+``align`` semiglobal linear): one
 cold call, three warm walls (host clock around a call that ends in
 ``torch.cuda.synchronize()``), then one warm call under
 ``torch.profiler``. Prints per call the walls, the device busy time (the
@@ -98,6 +101,16 @@ def main() -> int:
               f"busy {busy:.3f} ms, idle {1 - busy / fastest:.3f}; "
               + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top), flush=True)
 
+    single = np.random.default_rng(chip_smoke.SEED + 4)
+    pairs = {n: chip_smoke.related_pair(single, n) for n in (1000, 100_000)}
+    for name, n, mode, scoring in (("align_score", 1000, "global", sc),
+                                   ("align_score", 100_000, "local", sc),
+                                   ("align_score", 100_000, "local", asc),
+                                   ("align", 100_000, "semiglobal", sc),
+                                   ("align", 100_000, "semiglobal", asc)):
+        q, s = pairs[n]
+        report(f"{name} {mode} {type(scoring).__name__} {len(q)}x{len(s)}",
+               lambda: getattr(pt, name)(q, s, mode, scoring, device="cuda"))
     for name, n, count, mode, scoring in calls:
         qs, ss = map(list, zip(*sets[n][:count]))
         report(f"{name} {mode} {type(scoring).__name__} {count} pairs ~{n} "
