@@ -46,13 +46,16 @@ def slices(B: int, mesh: Mesh):
             for d, lo in zip(devices, range(0, B, per))]
 
 
-def _map(fn, mesh: Mesh, *arrays):
-    """fn on each device's slice of `arrays` (split along dim 0): the list
-    of the slices' outputs, in order."""
+def _map(fn, mesh: Mesh, *arrays, host=()):
+    """fn on each device's slice of `arrays` (split along dim 0 and moved
+    to the device), then of `host` (split, left where they are: lengths
+    that the level sweeps read on the host): the list of the slices'
+    outputs, in order."""
     out = []
     for dev, lo, hi in slices(arrays[0].shape[0], mesh):
         with on(dev):
-            out.append(fn(*(a[lo:hi].to(dev) for a in arrays)))
+            out.append(fn(*(a[lo:hi].to(dev) for a in arrays),
+                          *(h[lo:hi] for h in host)))
     return out
 
 
@@ -65,7 +68,8 @@ def last_cols_batch_sharded(q, s, ms, ns, sc: LinearScoring, mesh: Mesh):
     columns of B GLOBAL problems, on the inputs' device."""
     from anyseq_tpu_torch.kernels import lastcols
 
-    parts = _map(lambda *a: lastcols.last_cols(*a, sc), mesh, q, s, ms, ns)
+    parts = _map(lambda *a: lastcols.last_cols(*a, sc), mesh, q, s,
+                 host=(ms, ns))
     return _cat(parts, q.device)
 
 
@@ -74,8 +78,8 @@ def last_cols_batch_affine_sharded(q, s, ms, ns, sc, sgaps, mesh: Mesh):
     H and E last columns of the Myers-Miller levels."""
     from anyseq_tpu_torch.kernels import lastcols
 
-    parts = _map(lambda q_, s_, m_, n_, g_: lastcols.last_cols_affine(
-        q_, s_, m_, n_, sc, g_), mesh, q, s, ms, ns, sgaps)
+    parts = _map(lambda q_, s_, g_, m_, n_: lastcols.last_cols_affine(
+        q_, s_, m_, n_, sc, g_), mesh, q, s, sgaps, host=(ms, ns))
     return tuple(_cat(p, q.device) for p in zip(*parts))
 
 

@@ -193,7 +193,8 @@ def _level_batched(q, s, parts, sc, mesh=None):
     rev_t = t(rev, torch.bool)
     q3 = _gather(q, t(qlo), t(hs), rev_t, max(hs))
     s3 = _gather(s, t(slo), t(ws), rev_t, max(ws))
-    hs, ws = t(hs, torch.int32), t(ws, torch.int32)
+    # the lengths stay on the host, where K4 / K5L build their strip lists
+    hs, ws = (torch.tensor(v, dtype=torch.int32) for v in (hs, ws))
     if isinstance(sc, AffineScoring):
         args = (q3, s3, hs, ws, sc, t(sgaps, torch.bool))
         kinds = (lastcols.last_cols_affine(*args) if mesh is None else

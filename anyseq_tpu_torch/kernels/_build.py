@@ -46,15 +46,19 @@ SIGNATURES = {
                          _P, _P, _I, _P),
     "anyseq_walk": (_P, _L, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P,
                     _P),
-    "anyseq_lastcols": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                        _P, _I, _P, _P, _I, _P),
+    "anyseq_lastcols": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _I, _P),
+    "anyseq_lastcols_width": (_P, _P, _I, _L),
+    "anyseq_lastcols_grid": (_P, _P, _I, _I, _I),
     "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                            _P, _P, _I, _P, _P),
     "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                                _P),
+    "anyseq_lastcols_affine_width": (_P, _P, _I, _L),
+    "anyseq_lastcols_affine_grid": (_P, _P, _I, _I, _I),
     "anyseq_swarm": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
     "anyseq_band": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,

@@ -1,5 +1,5 @@
 """What the sweep wrappers share: the kernels' mode codes, the strip
-widths of the single-pair sweeps (the CTA strips of K2/K5p and K4/K5L,
+widths of the single-pair sweeps (the CTA strips of K2/K5p,
 the warp strips of K1/K5 and K8), their input check and the reduction of
 their per-strip bests."""
 from __future__ import annotations

@@ -1,6 +1,7 @@
-// The strip core of K8 and K10 (band.cu), and of K1, the single-pair score
-// sweep (band.cu anyseq_sweep): one strip of a band of the linear-gap DP,
-// swept by one warp.
+// The strip core of K8 and K10 (band.cu), of K1, the single-pair score
+// sweep (band.cu anyseq_sweep), and of K4, the level sweep (lastcols.cu,
+// a band a problem): one strip of a band of the linear-gap DP, swept by
+// one warp.
 //
 // The strip's shape is a template parameter (Geom): lane t owns the
 // LANE_COLS consecutive columns [col0 + LANE_COLS * t, +LANE_COLS) of a
@@ -48,6 +49,8 @@
 // column (and, K10, the right halo) from the lane that holds column n - 1.
 #pragma once
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace anyseq {
@@ -79,6 +82,15 @@ struct Geom {
 
 // K8 and K10: 1024-column strips (= kernels/band.py LANE_COLS).
 using BandGeom = Geom<32>;
+
+// What a strip sweep writes, a template flag of both cores: each strip's
+// first maximum (bests), the band's bottom row (row_out; affine also
+// rowf_out) and its last column (last_col; affine also last_col_e, and
+// K10's right halo). K8, K10, K1 and K5 write all three; the level sweeps
+// only what they return (K4 the bottom row, K5L the last columns), and
+// their GLOBAL problems need no best.
+constexpr int OUT_BEST = 1, OUT_ROW = 2, OUT_COL = 4;
+constexpr int OUT_ALL = OUT_BEST | OUT_ROW | OUT_COL;
 
 // A strip shape G and whether a kernel reads the band's boundary from
 // tensors (K8's, K8 affine's) or computes the closed form of a whole
@@ -283,8 +295,9 @@ __device__ __forceinline__ void store_best(
   }
 }
 
-// Strip k of the band. LAST: the strip that holds column n - 1.
-template <bool LOCAL, bool LAST, class G, bool CLOSED>
+// Strip k of the band. LAST: the strip that holds column n - 1; OUT: what
+// it writes.
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
 __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
   const int lane = (int)(threadIdx.x & 31);
@@ -344,16 +357,18 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
         H[c] = hl;
       }
       if (LAST) {
-        if (lc >= 0 && lc < LANE_COLS) {
-          int v = H[0];
+        if constexpr ((OUT & OUT_COL) != 0) {
+          if (lc >= 0 && lc < LANE_COLS) {
+            int v = H[0];
 #pragma unroll
-          for (int c = 1; c < LANE_COLS; ++c)
-            if (c == lc) v = H[c];
-          B.last_col[i] = v;
-          if (E.right) {
-            E.right[i] = v;
-            if ((i & (CHUNK - 1)) == CHUNK - 1 || i + 1 == h)
-              publish(E.right_flag, i + 1, E.right_sys);
+            for (int c = 1; c < LANE_COLS; ++c)
+              if (c == lc) v = H[c];
+            B.last_col[i] = v;
+            if (E.right) {
+              E.right[i] = v;
+              if ((i & (CHUNK - 1)) == CHUNK - 1 || i + 1 == h)
+                publish(E.right_flag, i + 1, E.right_sys);
+            }
           }
         }
       } else if (lane == LANES - 1) {
@@ -365,23 +380,28 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
     // the next step's inputs first, so that the best below overlaps them
     in_h = __shfl_up_sync(FULL, H[LANE_COLS - 1], 1);
     in_q = __shfl_up_sync(FULL, qi, 1);
-    if (row) {
-      const int row_max = lane_row_max<LAST>(H, valid);
-      if (row_max > bs) {
-        bs = row_max;
-        bi = i;
+    if constexpr ((OUT & OUT_BEST) != 0) {
+      if (row) {
+        const int row_max = lane_row_max<LAST>(H, valid);
+        if (row_max > bs) {
+          bs = row_max;
+          bi = i;
 #pragma unroll
-        for (int u = 0; u < LANE_COLS / 4; ++u)
-          sh.held[u][lane] = int4{H[4 * u], H[4 * u + 1], H[4 * u + 2],
-                                  H[4 * u + 3]};
+          for (int u = 0; u < LANE_COLS / 4; ++u)
+            sh.held[u][lane] = int4{H[4 * u], H[4 * u + 1], H[4 * u + 2],
+                                    H[4 * u + 3]};
+        }
       }
     }
   }
 
+  if constexpr ((OUT & OUT_ROW) != 0) {
 #pragma unroll
-  for (int c = 0; c < LANE_COLS; ++c)
-    if (!LAST || c < valid) B.row_out[c0 + c] = H[c];
-  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
+    for (int c = 0; c < LANE_COLS; ++c)
+      if (!LAST || c < valid) B.row_out[c0 + c] = H[c];
+  }
+  if constexpr ((OUT & OUT_BEST) != 0)
+    store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
 }
 
@@ -502,6 +522,141 @@ inline int width_of(const Width* widths, int count, int h, int n) {
       return widths[w].lane_cols;
   }
   return widths[0].lane_cols;
+}
+
+// --- The level sweeps K4 and K5L (lastcols.cu, lastcols_affine.cu): the
+// independent GLOBAL problems of one divide level in one launch, all their
+// strips in one ticket list in problem order. A problem is counted here in
+// the orientation its kernel sweeps it: h rows of n columns. ---
+
+// A level's problems on the device, one int64 array of 4 B + 1 values:
+// ms[B] and ns[B] (query and subject lengths), start[B + 1] (the prefix
+// sums of the problems' strips: problem b's strips are the tickets
+// [start[b], start[b + 1])) and boff[B] (where problem b's boundary
+// columns start in the launch's scratch).
+struct LevelMeta {
+  const long long* ms;
+  const long long* ns;
+  const long long* start;
+  const long long* boff;
+  int problems;
+
+  static LevelMeta of(const long long* meta, int B) {
+    return {meta, meta + B, meta + 2 * B, meta + 3 * B + 1, B};
+  }
+
+  // The problem whose strips hold ticket k: the last b with start[b] <= k.
+  __device__ __forceinline__ int problem_of(int k) const {
+    int lo = 0, hi = problems - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (start[mid] <= k)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+};
+
+// A problem's strips at `lane_cols` columns a lane (none when empty).
+inline int level_strips(int h, int n, int lane_cols) {
+  const int strip = LANES * lane_cols;
+  return h > 0 && n > 0 ? (n + strip - 1) / strip : 0;
+}
+
+// The boundary columns between a launch's strips: (strips_b - 1) x h_b
+// values a problem, of `bytes` each (4 linear; 8 affine, H and E).
+inline long long level_scratch(int lane_cols, const int* hs, const int* ns,
+                               int problems, int bytes) {
+  long long values = 0;
+  for (int b = 0; b < problems; ++b) {
+    const int strips = level_strips(hs[b], ns[b], lane_cols);
+    if (strips > 0) values += (long long)(strips - 1) * hs[b];
+  }
+  return values * bytes;
+}
+
+// The warps a level launch at width w runs: about (steps + 31) / lag
+// strips of a problem keep busy at once (grid_of's `busy`), the launch as
+// many as its problems keep busy together, up to the card's resident
+// warps and over equal rounds beyond them; `max_grid` > 0 caps them.
+inline int level_grid(const Width& w, const int* hs, const int* ns,
+                      int problems, int max_grid) {
+  int sms = 0, per_sm = 0;
+  card_of(w.kernel, &sms, &per_sm);
+  const long long resident = (long long)imax(per_sm * sms, 1) * WARPS;
+  long long strips = 0, busy = 0;
+  for (int b = 0; b < problems; ++b) {
+    const int k = level_strips(hs[b], ns[b], w.lane_cols);
+    if (k == 0) continue;
+    const long long steps = (hs[b] + w.rows - 1) / w.rows;
+    strips += k;
+    busy += imin(k, (int)((steps + LANES - 1 + w.lag - 1) / w.lag + 1));
+  }
+  if (strips == 0) return 0;
+  if (max_grid > 0) return (int)std::min<long long>(
+      strips, std::min<long long>(max_grid, resident));
+  const long long cap = std::min(resident, busy);
+  const long long rounds = (busy + cap - 1) / cap;
+  return (int)((busy + rounds - 1) / rounds);
+}
+
+// A warp's step at a level width, in cycles: `fixed + per_col x lane_cols`
+// while it has its scheduler to itself (the row chain's latency and the
+// hand-off), and at least `issue_fixed + issue_per_col x lane_cols` for
+// each warp that shares its scheduler (the instructions the warp issues).
+struct StepCost {
+  int fixed, per_col, issue_fixed, issue_per_col;
+};
+
+// The modelled cycles of a level launch at width w: its steps, the longer
+// of the slowest problem's critical path -- (its steps + 31) + (its strips
+// - 1) x lag -- and the launch's warp-steps spread over its warps, times
+// the step's cycles at that many warps a scheduler.
+inline double level_cycles(const Width& w, const StepCost& cost,
+                           const int* hs, const int* ns, int problems) {
+  int sms = 0, per_sm = 0;
+  card_of(w.kernel, &sms, &per_sm);
+  const int warps = level_grid(w, hs, ns, problems, 0);
+  if (warps == 0) return 0;
+  double path = 0, work = 0;
+  for (int b = 0; b < problems; ++b) {
+    const int k = level_strips(hs[b], ns[b], w.lane_cols);
+    if (k == 0) continue;
+    const double steps = (hs[b] + w.rows - 1) / w.rows + LANES - 1;
+    path = std::max(path, steps + (double)(k - 1) * w.lag);
+    work += k * steps;
+  }
+  // warps a scheduler (an SM has WARPS of them), on average
+  const double sharing =
+      std::max(1.0, (double)warps / (imax(sms, 1) * WARPS));
+  const double step = std::max<double>(
+      cost.fixed + cost.per_col * w.lane_cols,
+      sharing * (cost.issue_fixed + cost.issue_per_col * w.lane_cols));
+  return std::max(path, work / warps) * step;
+}
+
+// The width rule of K4 and K5L, over `widths` widest first with their step
+// costs: the least modelled time among the widths whose boundary scratch
+// fits in `cap` bytes (the caller's share of the card's free memory), the
+// wider on a tie; the widest where none fits (the most scratch any level
+// takes, for the fewest strips).
+inline int level_width(const Width* widths, const StepCost* costs, int count,
+                       const int* hs, const int* ns, int problems, int bytes,
+                       long long cap) {
+  int best = 0;
+  double best_cycles = -1;
+  for (int w = 0; w < count; ++w) {
+    if (level_scratch(widths[w].lane_cols, hs, ns, problems, bytes) > cap)
+      continue;
+    const double cycles = level_cycles(widths[w], costs[w], hs, ns, problems);
+    if (best_cycles < 0 || cycles < best_cycles) {
+      best = w;
+      best_cycles = cycles;
+    }
+  }
+  return widths[best].lane_cols;
 }
 
 }  // namespace band_core

@@ -1,5 +1,6 @@
-// The strip core of K8 affine and K10 affine (band_affine.cu), and of K5,
-// the single-pair affine score sweep (band_affine.cu anyseq_sweep_affine):
+// The strip core of K8 affine and K10 affine (band_affine.cu), of K5, the
+// single-pair affine score sweep (band_affine.cu anyseq_sweep_affine), and
+// of K5L, the affine level sweep (lastcols_affine.cu, a band a problem):
 // one strip of a band of the affine-gap (Gotoh) DP, swept by one warp. The
 // affine twin of band_sweep.cuh, whose lanes, CTAs, strip shapes (Geom),
 // staging rhythm, flags, claim, grid rule and width rule it shares.
@@ -71,6 +72,10 @@ using band_core::FULL;
 using band_core::Geom;
 using band_core::LANES;
 using band_core::lane_row_max;
+using band_core::OUT_ALL;
+using band_core::OUT_BEST;
+using band_core::OUT_COL;
+using band_core::OUT_ROW;
 using band_core::store_best;
 using band_core::wait_rows;
 using band_core::WARPS;
@@ -249,8 +254,9 @@ __device__ __forceinline__ void store_rows(const BandAffine& B, int c0,
   }
 }
 
-// Strip k of the band. LAST: the strip that holds column n - 1.
-template <bool LOCAL, bool LAST, class G, bool CLOSED>
+// Strip k of the band. LAST: the strip that holds column n - 1; OUT: what
+// it writes (band_sweep.cuh).
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
 __device__ void sweep_strip(const BandAffine& B, int k,
                             WarpSharedAffine<G>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
@@ -304,18 +310,20 @@ __device__ void sweep_strip(const BandAffine& B, int k,
         diag = up;
       }
       if (LAST) {
-        if (lc >= 0 && lc < LANE_COLS) {
-          int v = H[0];
+        if constexpr ((OUT & OUT_COL) != 0) {
+          if (lc >= 0 && lc < LANE_COLS) {
+            int v = H[0];
 #pragma unroll
-          for (int c = 1; c < LANE_COLS; ++c)
-            if (c == lc) v = H[c];
-          B.last_col[i] = v;
-          B.last_col_e[i] = e_out + go_ge;
-          if (E.right) {
-            E.right[i] = v;
-            E.right_e[i] = e_out + go_ge;
-            if ((i & (CHUNK - 1)) == CHUNK - 1 || i + 1 == h)
-              publish(E.right_flag, i + 1, E.right_sys);
+            for (int c = 1; c < LANE_COLS; ++c)
+              if (c == lc) v = H[c];
+            B.last_col[i] = v;
+            B.last_col_e[i] = e_out + go_ge;
+            if (E.right) {
+              E.right[i] = v;
+              E.right_e[i] = e_out + go_ge;
+              if ((i & (CHUNK - 1)) == CHUNK - 1 || i + 1 == h)
+                publish(E.right_flag, i + 1, E.right_sys);
+            }
           }
         }
       } else if (lane == LANES - 1) {
@@ -329,21 +337,24 @@ __device__ void sweep_strip(const BandAffine& B, int k,
     in_h = __shfl_up_sync(FULL, H[LANE_COLS - 1], 1);
     in_e = __shfl_up_sync(FULL, eh, 1);
     in_q = __shfl_up_sync(FULL, qi, 1);
-    if (row) {
-      const int row_max = lane_row_max<LAST>(H, valid);
-      if (row_max > bs) {
-        bs = row_max;
-        bi = i;
+    if constexpr ((OUT & OUT_BEST) != 0) {
+      if (row) {
+        const int row_max = lane_row_max<LAST>(H, valid);
+        if (row_max > bs) {
+          bs = row_max;
+          bi = i;
 #pragma unroll
-        for (int u = 0; u < LANE_COLS / 4; ++u)
-          sh.held[u][lane] = int4{H[4 * u], H[4 * u + 1], H[4 * u + 2],
-                                  H[4 * u + 3]};
+          for (int u = 0; u < LANE_COLS / 4; ++u)
+            sh.held[u][lane] = int4{H[4 * u], H[4 * u + 1], H[4 * u + 2],
+                                    H[4 * u + 3]};
+        }
       }
     }
   }
 
-  store_rows<LAST>(B, c0, valid, H, F);
-  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
+  if constexpr ((OUT & OUT_ROW) != 0) store_rows<LAST>(B, c0, valid, H, F);
+  if constexpr ((OUT & OUT_BEST) != 0)
+    store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
 }
 
@@ -352,7 +363,7 @@ __device__ void sweep_strip(const BandAffine& B, int k,
 // column behind the first, so that the two E chains of a lane overlap,
 // and the hand-off (five values), ring reads and loop serve two rows. Odd
 // h: a lane's last step sweeps the one row left.
-template <bool LOCAL, bool LAST, class G, bool CLOSED>
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
 __device__ void sweep_strip2(const BandAffine& B, int k,
                              WarpSharedAffine<G>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
@@ -447,30 +458,32 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
         }
       }
       if (LAST) {
-        if (lc >= 0 && lc < LANE_COLS) {
-          int v0 = R0[0], v1 = H[0];
+        if constexpr ((OUT & OUT_COL) != 0) {
+          if (lc >= 0 && lc < LANE_COLS) {
+            int v0 = R0[0], v1 = H[0];
 #pragma unroll
-          for (int c = 1; c < LANE_COLS; ++c) {
-            if (c == lc) {
-              v0 = R0[c];
-              v1 = H[c];
+            for (int c = 1; c < LANE_COLS; ++c) {
+              if (c == lc) {
+                v0 = R0[c];
+                v1 = H[c];
+              }
             }
-          }
-          B.last_col[i0] = v0;
-          B.last_col_e[i0] = e_out0 + go_ge;
-          if (second) {
-            B.last_col[i0 + 1] = v1;
-            B.last_col_e[i0 + 1] = e_out1 + go_ge;
-          }
-          if (E.right) {
-            E.right[i0] = v0;
-            E.right_e[i0] = e_out0 + go_ge;
+            B.last_col[i0] = v0;
+            B.last_col_e[i0] = e_out0 + go_ge;
             if (second) {
-              E.right[i0 + 1] = v1;
-              E.right_e[i0 + 1] = e_out1 + go_ge;
+              B.last_col[i0 + 1] = v1;
+              B.last_col_e[i0 + 1] = e_out1 + go_ge;
             }
-            if (((i0 + 2) & (CHUNK - 1)) == 0 || i0 + 2 >= h)
-              publish(E.right_flag, imin(i0 + 2, h), E.right_sys);
+            if (E.right) {
+              E.right[i0] = v0;
+              E.right_e[i0] = e_out0 + go_ge;
+              if (second) {
+                E.right[i0 + 1] = v1;
+                E.right_e[i0 + 1] = e_out1 + go_ge;
+              }
+              if (((i0 + 2) & (CHUNK - 1)) == 0 || i0 + 2 >= h)
+                publish(E.right_flag, imin(i0 + 2, h), E.right_sys);
+            }
           }
         }
       } else if (lane == LANES - 1) {
@@ -490,37 +503,41 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
     in_e0 = __shfl_up_sync(FULL, e0, 1);
     in_e1 = __shfl_up_sync(FULL, e1, 1);
     in_q = __shfl_up_sync(FULL, qq, 1);
-    if (row) {
-      const int m0 = lane_row_max<LAST>(R0, valid);
-      const int m1 = second ? lane_row_max<LAST>(H, valid) : SCORE_MIN;
-      if (imax(m0, m1) > bs) {
-        // the earlier row on a tie
-        const bool first = m0 >= m1;
-        bs = first ? m0 : m1;
-        bi = first ? i0 : i0 + 1;
+    if constexpr ((OUT & OUT_BEST) != 0) {
+      if (row) {
+        const int m0 = lane_row_max<LAST>(R0, valid);
+        const int m1 = second ? lane_row_max<LAST>(H, valid) : SCORE_MIN;
+        if (imax(m0, m1) > bs) {
+          // the earlier row on a tie
+          const bool first = m0 >= m1;
+          bs = first ? m0 : m1;
+          bi = first ? i0 : i0 + 1;
 #pragma unroll
-        for (int u = 0; u < LANE_COLS / 4; ++u)
-          sh.held[u][lane] =
-              first ? int4{R0[4 * u], R0[4 * u + 1], R0[4 * u + 2],
-                           R0[4 * u + 3]}
-                    : int4{H[4 * u], H[4 * u + 1], H[4 * u + 2], H[4 * u + 3]};
+          for (int u = 0; u < LANE_COLS / 4; ++u)
+            sh.held[u][lane] =
+                first ? int4{R0[4 * u], R0[4 * u + 1], R0[4 * u + 2],
+                             R0[4 * u + 3]}
+                      : int4{H[4 * u], H[4 * u + 1], H[4 * u + 2],
+                             H[4 * u + 3]};
+        }
       }
     }
   }
 
-  store_rows<LAST>(B, c0, valid, H, F);
-  store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
+  if constexpr ((OUT & OUT_ROW) != 0) store_rows<LAST>(B, c0, valid, H, F);
+  if constexpr ((OUT & OUT_BEST) != 0)
+    store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
 }
 
 // Strip k at G's rows a step.
-template <bool LOCAL, bool LAST, class G, bool CLOSED>
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
 __device__ __forceinline__ void sweep(const BandAffine& B, int k,
                                       WarpSharedAffine<G>& sh) {
   if constexpr (G::ROWS == 2)
-    sweep_strip2<LOCAL, LAST, G, CLOSED>(B, k, sh);
+    sweep_strip2<LOCAL, LAST, G, CLOSED, OUT>(B, k, sh);
   else
-    sweep_strip<LOCAL, LAST, G, CLOSED>(B, k, sh);
+    sweep_strip<LOCAL, LAST, G, CLOSED, OUT>(B, k, sh);
 }
 
 }  // namespace band_affine_core

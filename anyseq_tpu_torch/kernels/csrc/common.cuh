@@ -82,14 +82,4 @@ inline int resident_ctas(const void* kernel, int threads) {
   return per_sm * sms > 0 ? per_sm * sms : 1;
 }
 
-// The grid of a strip sweep: one CTA a strip, at most what fits on the
-// card divided among the `share` launches that must be resident together
-// (the collective sweep's ranks on one card), at most max_grid (> 0).
-inline int strip_grid(const void* kernel, int threads, int strips, int share,
-                      int max_grid) {
-  int grid = resident_ctas(kernel, threads) / (share > 1 ? share : 1);
-  grid = imin(strips, grid > 0 ? grid : 1);
-  return max_grid > 0 ? imin(grid, max_grid) : grid;
-}
-
 }  // namespace anyseq

@@ -1,7 +1,8 @@
 // One strip of the linear-gap DP, swept by one CTA along anti-diagonals.
 //
-// Shared by the single-pair sweep (wavefront.cu, K1/K2) and the batched
-// level sweep (lastcols.cu, K4).
+// Used by K2 alone, the single-pair sweep with codes (wavefront.cu): K1,
+// the score sweep, and K4, the level sweep, run on the warp strip core
+// (band_sweep.cuh).
 //
 // The subject (columns) is cut into strips of STRIP columns; thread t of
 // the CTA owns the COLS consecutive columns [col0 + t*COLS, +COLS) and
@@ -42,7 +43,7 @@ struct Strip {
   int* right_flag;
   int* last_col;            // H[i][n-1] for i < m, or null
   int* last_row;            // H[m-1][j] for the strip's columns, or null
-  uint32_t* preds;          // packed codes, word (i, j / COLS), or null
+  uint32_t* preds;          // packed codes, word (i, j / COLS)
   int pred_stride;          // words per row
   int* best;                // (score, i, j) of the strip's first maximum
 };
@@ -83,7 +84,7 @@ __device__ __forceinline__ bool better(int as, int ai, int aj, int bs, int bi,
   return as > bs || (as == bs && (ai < bi || (ai == bi && aj < bj)));
 }
 
-template <bool LOCAL, bool PREDS, bool BEST>
+template <bool LOCAL>
 __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
   const int t = (int)threadIdx.x;
   const int c0 = S.col0 + t * COLS;
@@ -127,7 +128,7 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
         int h = imax(dsub, up + g);
         if (LOCAL) h = imax(h, 0);
         h = imax(h, left + g);
-        if (PREDS && c0 + c < S.n) {
+        if (c0 + c < S.n) {
           // the same comparisons, in the same order, as the plain version
           const int code = h == dsub         ? PRED_NO_GAP
                            : h == left + g ? PRED_GAP_Q
@@ -135,7 +136,7 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
                                            : PRED_NONE;
           word |= (uint32_t)code << (2 * c);
         }
-        if (BEST && c0 + c < S.n && h > bs) {
+        if (c0 + c < S.n && h > bs) {
           bs = h;
           bi = i;
           bj = c0 + c;
@@ -147,7 +148,7 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
       }
       sh.hand_h[step & 1][t] = left;
       sh.hand_q[step & 1][t] = qi;
-      if (PREDS && c0 < S.n) S.preds[(size_t)i * S.pred_stride + c0 / COLS] = word;
+      if (c0 < S.n) S.preds[(size_t)i * S.pred_stride + c0 / COLS] = word;
       if (S.right && t == SWEEP_THREADS - 1) {
         S.right[i] = left;
         if ((i + 1) % CHUNK == 0 || i + 1 == S.m)
@@ -162,23 +163,21 @@ __device__ void sweep_strip(const Strip& S, const Scoring sc, SweepShared& sh) {
     for (int c = 0; c < COLS; ++c)
       if (c0 + c < S.n) S.last_row[c0 + c] = H[c];
   }
-  if (BEST) {
-    sh.best[0][t] = bs;
-    sh.best[1][t] = bi;
-    sh.best[2][t] = bj;
-    __syncthreads();
-    if (t == 0) {
-      for (int u = 1; u < SWEEP_THREADS; ++u) {
-        if (better(sh.best[0][u], sh.best[1][u], sh.best[2][u], bs, bi, bj)) {
-          bs = sh.best[0][u];
-          bi = sh.best[1][u];
-          bj = sh.best[2][u];
-        }
+  sh.best[0][t] = bs;
+  sh.best[1][t] = bi;
+  sh.best[2][t] = bj;
+  __syncthreads();
+  if (t == 0) {
+    for (int u = 1; u < SWEEP_THREADS; ++u) {
+      if (better(sh.best[0][u], sh.best[1][u], sh.best[2][u], bs, bi, bj)) {
+        bs = sh.best[0][u];
+        bi = sh.best[1][u];
+        bj = sh.best[2][u];
       }
-      S.best[0] = bs;
-      S.best[1] = bi;
-      S.best[2] = bj;
     }
+    S.best[0] = bs;
+    S.best[1] = bi;
+    S.best[2] = bj;
   }
   __syncthreads();
 }

@@ -2,8 +2,9 @@
 // anti-diagonals: the affine twin of sweep.cuh, with its geometry, its
 // staging ring and its strip hand-off.
 //
-// Shared by the single-pair sweep (wavefront_affine.cu, K5/K5p) and the
-// batched level sweep (lastcols_affine.cu, K5L).
+// Used by K5p alone, the single-pair sweep with codes
+// (wavefront_affine.cu): K5, the score sweep, and K5L, the level sweep, run
+// on the affine warp strip core (band_sweep_affine.cuh).
 //
 // Thread t owns COLS consecutive columns and keeps H[i-1][j] and F[i-1][j]
 // of each in registers: F runs down a column, so it never leaves its
@@ -52,7 +53,7 @@ struct StripAffine {
   int* last_col;            // H[i][n-1] for i < m, or null
   int* last_col_e;          // E[i][n-1] for i < m, or null
   int* last_row;            // H[m-1][j] for the strip's columns, or null
-  uint32_t* preds;          // 4-bit codes, word (i, j / 8), or null
+  uint32_t* preds;          // 4-bit codes, word (i, j / 8)
   int pred_stride;          // words per row
   int* best;                // (score, i, j) of the strip's first maximum
 };
@@ -104,7 +105,7 @@ __device__ __forceinline__ void stage_chunk_affine(const StripAffine& S,
   sh.ring_q[r % RING] = S.q[r];
 }
 
-template <bool LOCAL, bool PREDS, bool BEST>
+template <bool LOCAL>
 __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
                                    SweepAffineShared& sh) {
   const int t = (int)threadIdx.x;
@@ -157,7 +158,7 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
         if (LOCAL) tt = imax(tt, 0);
         const int e = imax(e_left + ge, h_left + go_ge);
         const int h = imax(tt, e);
-        if (PREDS && c0 + c < S.n) {
+        if (c0 + c < S.n) {
           // the same comparisons, in the same order, as the plain version
           const int ph = h == dsub ? PRED_NO_GAP
                          : h == e  ? PRED_GAP_Q
@@ -166,7 +167,7 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
           const int code = ph | (e != h_left + go_ge) << 2 | (f != up + go_ge) << 3;
           word[c / 8] |= (uint32_t)code << (4 * (c % 8));
         }
-        if (BEST && c0 + c < S.n && h > bs) {
+        if (c0 + c < S.n && h > bs) {
           bs = h;
           bi = i;
           bj = c0 + c;
@@ -184,7 +185,7 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
       sh.hand_h[step & 1][t] = h_left;
       sh.hand_e[step & 1][t] = e_left;
       sh.hand_q[step & 1][t] = qi;
-      if (PREDS && c0 < S.n) {
+      if (c0 < S.n) {
         uint32_t* row = S.preds + (size_t)i * S.pred_stride + c0 / 8;
         row[0] = word[0];
         if (c0 + 8 < S.n) row[1] = word[1];
@@ -204,23 +205,21 @@ __device__ void sweep_strip_affine(const StripAffine& S, const AffineScoring sc,
     for (int c = 0; c < COLS; ++c)
       if (c0 + c < S.n) S.last_row[c0 + c] = H[c];
   }
-  if (BEST) {
-    sh.best[0][t] = bs;
-    sh.best[1][t] = bi;
-    sh.best[2][t] = bj;
-    __syncthreads();
-    if (t == 0) {
-      for (int u = 1; u < SWEEP_THREADS; ++u) {
-        if (better(sh.best[0][u], sh.best[1][u], sh.best[2][u], bs, bi, bj)) {
-          bs = sh.best[0][u];
-          bi = sh.best[1][u];
-          bj = sh.best[2][u];
-        }
+  sh.best[0][t] = bs;
+  sh.best[1][t] = bi;
+  sh.best[2][t] = bj;
+  __syncthreads();
+  if (t == 0) {
+    for (int u = 1; u < SWEEP_THREADS; ++u) {
+      if (better(sh.best[0][u], sh.best[1][u], sh.best[2][u], bs, bi, bj)) {
+        bs = sh.best[0][u];
+        bi = sh.best[1][u];
+        bj = sh.best[2][u];
       }
-      S.best[0] = bs;
-      S.best[1] = bi;
-      S.best[2] = bj;
     }
+    S.best[0] = bs;
+    S.best[1] = bi;
+    S.best[2] = bj;
   }
   __syncthreads();
 }

@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
     S.preds = preds;
     S.pred_stride = pred_stride;
     S.best = bests + 3 * k;
-    sweep_strip<LOCAL, true, true>(S, sc, sh);
+    sweep_strip<LOCAL>(S, sc, sh);
   }
 }
 

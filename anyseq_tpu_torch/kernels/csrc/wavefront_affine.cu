@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
     S.preds = preds;
     S.pred_stride = pred_stride;
     S.best = bests + 3 * k;
-    sweep_strip_affine<LOCAL, true, true>(S, sc, sh);
+    sweep_strip_affine<LOCAL>(S, sc, sh);
   }
 }
 

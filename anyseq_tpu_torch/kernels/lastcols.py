@@ -5,16 +5,49 @@ split merges of a level: hb_sum (Hirschberg) and the Myers-Miller merge.
 On a CPU tensor :func:`last_cols` and :func:`last_cols_affine` run the
 plain versions (:func:`plain`, ``engine.batch.last_cols_batch``, and
 :func:`plain_affine`, ``engine.batch.last_cols_batch_affine``, in the
-kernels' layout); on a CUDA tensor they launch the kernels.
+kernels' layout); on a CUDA tensor they launch the kernels, on the warp
+strip cores at one width a launch (the card's level rule, which holds the
+boundary columns between strips to 1 / :data:`SCRATCH_SHARE` of the
+card's free memory). The problems' lengths may be given on the host (a
+list, an array or a CPU tensor), as the level drivers do: the kernels'
+strip list is built there and copied to the card once; lengths on the
+card are copied back once.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring
 from anyseq_tpu_torch.engine import batch
 from anyseq_tpu_torch.kernels import _build
-from anyseq_tpu_torch.kernels.wavefront import STRIP
+from anyseq_tpu_torch.kernels._sweep import LANES
+
+# Columns a lane K4 and K5L sweep at, widest first (csrc/lastcols.cu and
+# csrc/lastcols_affine.cu with_width): K4 one row a step, K5L one row at
+# 16 and two rows a step at 8 and 4.
+WIDTHS = (32, 16, 8)
+AFFINE_WIDTHS = (16, 8, 4)
+# The level rule takes a narrower width only where the boundary columns
+# it needs fit in 1 / SCRATCH_SHARE of the card's free memory at the call.
+SCRATCH_SHARE = 4
+
+
+class Plan(NamedTuple):
+    """One launch of K4 or K5L: its width (columns a lane), its warps, its
+    strips, the bytes of its boundary columns and the cap the rule held
+    them to."""
+    width: int
+    warps: int
+    strips: int
+    scratch_bytes: int
+    cap_bytes: int
+
+
+# the last launch's plan, for the tools that report it
+last_plan: Plan | None = None
 
 
 def plain(q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
@@ -34,12 +67,25 @@ def plain_affine(q, s, ms, ns, sc: AffineScoring, sgaps):
                  batch.last_cols_batch_affine(q, s, ms, ns, sc, sgaps))
 
 
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x, dtype=np.int64))
+
+
+def _host(x) -> np.ndarray:
+    """Lengths as a contiguous int32 array on the host (lengths on the
+    card are copied back: one synchronisation)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.int32).numpy()
+    return np.ascontiguousarray(x, dtype=np.int32)
+
+
 def _check(q, s, ms, ns) -> None:
     B = q.shape[0]
     for name, t in (("q", q), ("s", s)):
         if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (B, L) uint8 tensor")
-    if s.shape[0] != B or ms.shape != (B,) or ns.shape != (B,):
+    if s.shape[0] != B or len(ms) != B or len(ns) != B:
         raise ValueError("batch sizes disagree")
     if q.device != s.device:
         raise ValueError("q and s must be on one device")
@@ -51,42 +97,77 @@ def last_cols(q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
     q: (B, M) uint8, s: (B, N) uint8, ms/ns: (B,) lengths >= 1."""
     _check(q, s, ms, ns)
     if q.device.type == "cpu":
-        return plain(q, s, ms, ns, sc)
+        return plain(q, s, _as_tensor(ms), _as_tensor(ns), sc)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return launch(_build.library(), q, s, ms, ns, sc)
 
 
-def _strips(ms, ns):
-    """The kernels' int32 lengths, and the ticket list of all strips of all
-    problems: (ms, ns, strip_start (B + 1,) prefix sums, total)."""
-    i32 = {"dtype": torch.int32, "device": ms.device}
-    ms = ms.to(**i32).contiguous()
-    ns = ns.to(**i32).contiguous()
-    strips = torch.where(ms > 0, (ns + STRIP - 1) // STRIP, 0)
-    strip_start = torch.zeros(ms.shape[0] + 1, **i32)
-    strip_start[1:] = torch.cumsum(strips, 0)
-    return ms, ns, strip_start, int(strip_start[-1])
+def _cap_bytes(dev) -> int:
+    """1 / SCRATCH_SHARE of the memory free for tensors on `dev`: the
+    card's free memory and what the caching allocator holds unused (no
+    cap off the card)."""
+    if dev.type != "cuda":
+        return 2**62
+    free = torch.cuda.mem_get_info(dev)[0]
+    unused = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+        dev)
+    return (free + unused) // SCRATCH_SHARE
 
 
-def launch(lib, q, s, ms, ns, sc: LinearScoring) -> torch.Tensor:
-    """Launch the kernel of `lib`, wherever the tensors lie."""
+def _plan(lib, name: str, ms, ns, rows, cols, value_bytes: int, width: int,
+          grid: int, dev):
+    """Width, strip list and scratch of one launch of K4 (`name`
+    anyseq_lastcols) or K5L (anyseq_lastcols_affine) on problems of
+    `rows` x `cols` in the kernel's orientation (ms, ns the caller's
+    lengths on the host): (plan, the LevelMeta array on `dev`, boundary
+    values). `width` 0 takes the level rule's; `grid` > 0 caps the
+    warps."""
+    B = len(ms)
+    args = (ms.ctypes.data, ns.ctypes.data, B)
+    cap = _cap_bytes(dev)
+    width = width or getattr(lib, name + "_width")(*args, cap)
+    strip = LANES * width
+    rows, cols = rows.astype(np.int64), cols.astype(np.int64)
+    strips = np.where((rows > 0) & (cols > 0), -(-cols // strip), 0)
+    start = np.zeros(B + 1, np.int64)
+    np.cumsum(strips, out=start[1:])
+    values = np.maximum(strips - 1, 0) * rows
+    boff = np.cumsum(values) - values
+    meta = torch.from_numpy(np.concatenate([ms, ns, start, boff]).astype(
+        np.int64)).to(dev)
+    total, held = int(start[-1]), int(values.sum())
+    global last_plan
+    last_plan = Plan(width, getattr(lib, name + "_grid")(*args, width, grid),
+                     total, held * value_bytes, cap)
+    return last_plan, meta, held
+
+
+def launch(lib, q, s, ms, ns, sc: LinearScoring, width: int = 0,
+           grid: int = 0) -> torch.Tensor:
+    """Launch K4 of `lib`, wherever the tensors lie, at `width` columns a
+    lane (0: the level rule's, ``anyseq_lastcols_width``), `grid` > 0
+    capping its warps."""
     B, M = q.shape
     dev = q.device
     i32 = {"dtype": torch.int32, "device": dev}
-    ms, ns, strip_start, total = _strips(ms.to(dev), ns.to(dev))
+    ms, ns = _host(ms), _host(ns)
+    # K4 sweeps each problem transposed: subject rows, query columns
+    plan, meta, held = _plan(lib, "anyseq_lastcols", ms, ns, ns, ms, 4,
+                             width, grid, dev)
     cols = torch.zeros((B, M), **i32)
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(max(total, 1), **i32)
-    bcols = torch.empty(max(total, 1) * M, **i32)
+    ticket_flags = torch.zeros(1 + plan.strips, **i32)
+    bcols = torch.empty(max(held, 1), **i32)
     err = lib.anyseq_lastcols(
-        q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0), ms.data_ptr(),
-        ns.data_ptr(), strip_start.data_ptr(), B, total, sc.match,
-        sc.mismatch, sc.gap, ticket.data_ptr(), bcols.data_ptr(), M,
-        flags.data_ptr(), cols.data_ptr(), M, _build.stream(dev),
+        q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0),
+        ms.ctypes.data, ns.ctypes.data, meta.data_ptr(), B, plan.strips,
+        sc.match, sc.mismatch, sc.gap, plan.width, grid,
+        ticket_flags.data_ptr(), bcols.data_ptr(), cols.data_ptr(), M,
+        _build.stream(dev),
     )
     _build.check(err, "lastcols")
-    _build.launches["lastcols"] += 1
+    if plan.strips:
+        _build.launches["lastcols"] += 1
     return cols
 
 
@@ -98,37 +179,43 @@ def last_cols_affine(q, s, ms, ns, sc: AffineScoring, sgaps):
     q: (B, M) uint8, s: (B, N) uint8, ms/ns: (B,) lengths >= 1, sgaps:
     (B,) bool."""
     _check(q, s, ms, ns)
-    if sgaps.shape != ms.shape:
+    if sgaps.shape != (len(ms),):
         raise ValueError("batch sizes disagree")
     if q.device.type == "cpu":
-        return plain_affine(q, s, ms, ns, sc, sgaps)
+        return plain_affine(q, s, _as_tensor(ms), _as_tensor(ns), sc, sgaps)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return launch_affine(_build.library(), q, s, ms, ns, sc, sgaps)
 
 
-def launch_affine(lib, q, s, ms, ns, sc: AffineScoring, sgaps):
-    """Launch the affine kernel of `lib`, wherever the tensors lie."""
+def launch_affine(lib, q, s, ms, ns, sc: AffineScoring, sgaps,
+                  width: int = 0, grid: int = 0):
+    """Launch K5L of `lib`, wherever the tensors lie, at `width` columns a
+    lane (0: the level rule's, ``anyseq_lastcols_affine_width``), `grid` >
+    0 capping its warps."""
     B, M = q.shape
     dev = q.device
     i32 = {"dtype": torch.int32, "device": dev}
-    ms, ns, strip_start, total = _strips(ms.to(dev), ns.to(dev))
+    ms, ns = _host(ms), _host(ns)
+    plan, meta, held = _plan(lib, "anyseq_lastcols_affine", ms, ns, ms, ns,
+                             8, width, grid, dev)
     sgaps = sgaps.to(device=dev, dtype=torch.bool).contiguous()
     cols = torch.zeros((B, M), **i32)
     cols_e = torch.zeros((B, M), **i32)
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(max(total, 1), **i32)
-    bcols = torch.empty(max(total, 1) * M, **i32)
-    bcols_e = torch.empty(max(total, 1) * M, **i32)
+    ticket_flags = torch.zeros(1 + plan.strips, **i32)
+    bcols = torch.empty(max(held, 1), **i32)
+    bcols_e = torch.empty(max(held, 1), **i32)
     err = lib.anyseq_lastcols_affine(
-        q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0), ms.data_ptr(),
-        ns.data_ptr(), sgaps.data_ptr(), strip_start.data_ptr(), B, total,
-        sc.match, sc.mismatch, sc.gap_open, sc.gap_extend, ticket.data_ptr(),
-        bcols.data_ptr(), bcols_e.data_ptr(), M, flags.data_ptr(),
-        cols.data_ptr(), cols_e.data_ptr(), M, _build.stream(dev),
+        q.data_ptr(), q.stride(0), s.data_ptr(), s.stride(0),
+        ms.ctypes.data, ns.ctypes.data, meta.data_ptr(), sgaps.data_ptr(), B,
+        plan.strips, sc.match, sc.mismatch, sc.gap_open, sc.gap_extend,
+        plan.width, grid, ticket_flags.data_ptr(), bcols.data_ptr(),
+        bcols_e.data_ptr(), cols.data_ptr(), cols_e.data_ptr(), M,
+        _build.stream(dev),
     )
     _build.check(err, "lastcols_affine")
-    _build.launches["lastcols_affine"] += 1
+    if plan.strips:
+        _build.launches["lastcols_affine"] += 1
     return cols, cols_e
 
 

@@ -9,17 +9,22 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    (nvidia-smi), and the nvcc build of the kernels from
    ``anyseq_tpu_torch/kernels/csrc/``; beside it, the strip-sweep
    sources built once more with ``-Xptxas -v`` (each kernel's registers
-   and spills), and the warp strip cores of K8/K10 and K1 (``band.cu``)
-   and of their affine modes and K5 (``band_affine.cu``), at every strip
-   width, checked to spill nothing, each kernel's SASS searched for the
-   DPX instructions of the chain (VIADDMNMX, VIMNMX3).
+   and spills), and the warp strip cores of K8/K10 and K1 (``band.cu``),
+   of their affine modes and K5 (``band_affine.cu``) and of the level
+   sweeps K4 and K5L (``lastcols.cu``, ``lastcols_affine.cu``), at every
+   strip width, checked to spill nothing, each kernel's SASS searched for
+   the DPX instructions of the chain (VIADDMNMX, VIMNMX3).
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K1 and
    K5 also forced to each strip width they have (3 modes, K5's
    start_gap), and at ragged edges (one column, fewer than a lane holds,
-   one past a strip, one row; ge = 0 and go = 0). K10 and
-   K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
+   one past a strip, one row; ge = 0 and go = 0). K4 and K5L forced to
+   each width they have on ragged levels (problems of one row and of one
+   column, narrower than a lane, a strip wide and one past, rows on both
+   sides of the 32-row chunk, odd rows, mixed strip counts, taller and
+   wider than tall; K5L with mixed start_gap flags, ge = 0 and go = 0).
+   K10 and K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
    over every card where there are several: two chained bands in 3
    modes and under start_gap, and a subject that leaves the last rank
    without columns; K7's affine codes at 4,096 problems. K8 and K10
@@ -70,7 +75,11 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    main paths gave it in phase 3 (kept as they passed), bit for bit; K1
    and K5 with the width and warps they ran at, bound and share, also
    alone at the largest sweep of the 100k constructions and (K5) the 100k
-   local affine score. Each whole 1 Mbp band (linear and affine) against
+   local affine score. K4 and K5L at every level of the 100k
+   constructions and at each width they have, each level with the rule's
+   width, warps, boundary scratch, critical path, bound and share. Every
+   K4 / K5L launch of phase 3 must have kept its boundary columns within
+   the level rule's cap. Each whole 1 Mbp band (linear and affine) against
    the same band run as a chain of CUT_ROWS-row bands; each rank's first
    band of the mesh scores alone, and cut to CUT_ROWS rows against the
    plain version.
@@ -179,7 +188,9 @@ REDESIGNED = {"wavefront_score": "csrc/band_sweep.cuh",
               "band": "csrc/band_sweep.cuh",
               "band_collective": "csrc/band_sweep.cuh",
               "band_affine": "csrc/band_sweep_affine.cuh",
-              "band_collective_affine": "csrc/band_sweep_affine.cuh"}
+              "band_collective_affine": "csrc/band_sweep_affine.cuh",
+              "lastcols": "csrc/band_sweep.cuh",
+              "lastcols_affine": "csrc/band_sweep_affine.cuh"}
 # a linear construction long enough that its 4-part level has parts
 # taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
 HB_GENOME_BP = 2_200_000
@@ -189,6 +200,8 @@ MESH_WALLS: dict = {}            # phase 3's mesh calls: wall in s
 MESH_2D_BP = 100_000             # the pairs of the 2 x 2 collective batch
 # single-device results that the mesh path must equal, by name
 SINGLE: dict = {}
+# (public call, kernel, lastcols.Plan) of every K4 / K5L launch of phase 3
+LEVEL_PLANS: list = []
 
 
 def check(cond: bool, what: str) -> None:
@@ -516,6 +529,91 @@ def phase2_sweeps(errors):
                          reps=0)
 
 
+def level_shapes(width: int):
+    """Ragged levels at `width` columns a lane, as (rows, columns) of each
+    problem in the orientation its kernel sweeps it: problems of one row
+    and of one column, narrower than a lane, a strip wide and one past;
+    rows on both sides of the 32-row chunk (odd ones), 1-3 strips mixed in
+    one ticket list; taller than wide and wider than tall."""
+    strip = 32 * width
+    return [[(1, 1), (1, strip + 3), (40, 1), (33, max(width - 1, 1)),
+             (45, strip), (31, strip + 1), (64, 2 * strip)],
+            [(31, 2 * strip + 17), (32, 5), (33, strip + 1),
+             (63, 3 * strip), (65, strip - 1), (2, 2 * strip + 1),
+             (97, strip + 40)],
+            [(300, 90), (90, 300), (150, strip + 7), (strip + 7, 60)]]
+
+
+def level_path_steps(affine: bool, ms, ns, width: int) -> int:
+    """The critical path of a K4 (K5L) launch at `width` columns a lane,
+    in steps: the slowest problem's (steps + 31) + (strips - 1) x lag, a
+    step one row (K5L below 16 columns a lane two), strips lag = 32 /
+    rows + 31 steps apart (csrc/band_sweep.cuh level_cycles)."""
+    ms, ns = (torch.as_tensor(x).cpu().to(torch.int64) for x in (ms, ns))
+    rows, cols = (ms, ns) if affine else (ns, ms)
+    per = 2 if affine and width < 16 else 1
+    strips = torch.where((rows > 0) & (cols > 0),
+                         -(-cols // (32 * width)), 0)
+    path = -(-rows // per) + 31 + (strips - 1) * (32 // per + 31)
+    return int(torch.where(strips > 0, path, 0).max())
+
+
+def phase2_levels(errors):
+    """K4 and K5L, the level sweeps on the warp strip cores, forced to each
+    width they have against their plain versions, bit for bit: phase 2's
+    64 ragged halves and the ragged levels of level_shapes at each width
+    (K4 with two linear scorings; K5L with mixed start_gap flags at the
+    bench scoring, a free extension and a free opening). The problems come
+    from a generator of their own, so that the main paths' pairs stay
+    those of every earlier run."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring
+    from anyseq_tpu_torch.kernels import _build, lastcols
+
+    rng = np.random.default_rng(SEED + 4)
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    for kernel, name, widths, scorings in (
+            ("K4", "lastcols", lastcols.WIDTHS,
+             [LinearScoring(), LinearScoring(3, -2, -2)]),
+            ("K5L", "lastcols_affine", lastcols.AFFINE_WIDTHS,
+             [AffineScoring(*AFFINE), AffineScoring(1, -6, -4, 0),
+              AffineScoring(2, -1, 0, -1)])):
+        affine = kernel == "K5L"
+        cases = [(random_batch(rng, dev, 64, 1500, 3000, lo=100),
+                  scorings[:1])]
+        for width in widths:
+            for shapes in level_shapes(width):
+                rows, cols = zip(*shapes)
+                ms_, ns_ = (rows, cols) if affine else (cols, rows)
+                B = len(shapes)
+                q3 = torch.from_numpy(rng.integers(
+                    65, 69, (B, max(ms_)), dtype=np.uint8)).to(dev)
+                s3 = torch.from_numpy(rng.integers(
+                    65, 69, (B, max(ns_)), dtype=np.uint8)).to(dev)
+                cases.append(((q3, s3, torch.tensor(ms_), torch.tensor(ns_)),
+                              scorings))
+        for (q3, s3, ms_, ns_), scs in cases:
+            sg = torch.from_numpy(rng.integers(0, 2, q3.shape[0])
+                                  .astype(bool)).to(dev)
+            for scoring in scs:
+                extra = (sg,) if affine else ()
+                want = getattr(lastcols, "plain_affine" if affine
+                               else "plain")(q3, s3, ms_, ns_, scoring,
+                                             *extra)
+                for w in widths:
+                    got = getattr(lastcols, "launch_affine" if affine
+                                  else "launch")(lib, q3, s3, ms_, ns_,
+                                                 scoring, *extra, width=w)
+                    err = max_abs_err(got, want)
+                    check(err == 0, f"phase2 {kernel} {name} B={len(ms_)} "
+                                    f"width {w} {scoring}: kernel == plain "
+                                    f"(max_abs_err {err})")
+                    errors[name] = max(errors.get(name, 0), err)
+            print(f"phase2 {kernel} {name} B={len(ms_)} up to "
+                  f"{int(max(ms_))}x{int(max(ns_))} equal=True at widths "
+                  f"{list(widths)} for {len(scs)} scorings", flush=True)
+
+
 # The launch function of each kernel wrapper module (K1/K2 share one, as
 # do K5/K5p); the plain version takes the same arguments after the library.
 LAUNCHERS = {
@@ -571,7 +669,11 @@ def kept_launches(kept: list, call: list):
     def keeping(fn):
         def launch(*args, **kwargs):
             kept.append((call[0], fn, args))
-            return real[fn](*args, **kwargs)
+            out = real[fn](*args, **kwargs)
+            if fn.startswith("lastcols"):
+                LEVEL_PLANS.append((call[0], fn,
+                                    wrapper_module(fn).last_plan))
+            return out
         return launch
 
     for fn, (_, attr) in LAUNCHERS.items():
@@ -1187,7 +1289,8 @@ def phase2_swarm_affine_codes(rng, errors):
 # instructions (the warp strip cores)
 PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
                  "lastcols_affine.cu", "band.cu", "band_affine.cu")
-WARP_CORES = ("band.cu", "band_affine.cu")
+WARP_CORES = ("band.cu", "band_affine.cu", "lastcols.cu",
+              "lastcols_affine.cu")
 
 
 def kernel_args(mangled: str):
@@ -1278,7 +1381,12 @@ def build_report():
                     if name in WARP_CORES:
                         check(spills == 0,
                               f"{name} {kernel}<{flags}> spills nothing")
-                        check(counts and all(counts.values()),
+                        # the chain's max-plus in every kernel; the
+                        # three-way max of the best where there is one (the
+                        # level sweeps K4 and K5L have none)
+                        check(counts and counts["VIADDMNMX"] > 0
+                              and (counts["VIMNMX3"] > 0
+                                   or name.startswith("lastcols")),
                               f"{name} {kernel}<{flags}>'s SASS holds DPX")
     return report
 
@@ -1847,6 +1955,49 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     def preds(args):
         return args[5]
 
+    def levels(name, tag, call, launches):
+        """Every K4 / K5L launch of `call` (a level each) against its plain
+        version at the rule's width and at each width, each timed alone,
+        with the rule's width, warps, boundary scratch, its cap and the
+        critical path; the first level's time at the rule's width is the
+        JSON line's."""
+        from anyseq_tpu_torch.kernels import lastcols
+
+        affine = name == "lastcols_affine"
+        widths = lastcols.AFFINE_WIDTHS if affine else lastcols.WIDTHS
+        fn, total = launcher(name), 0.0
+        for idx, args in enumerate(launches):
+            ms_, ns_ = args[3:5]
+            want, plain_ms = timed(lambda: plain_of(name, args))
+            times = {}
+            for w in (0, *widths):
+                err = max_abs_err(fn(*args, width=w), want)
+                if w == 0:
+                    plan = lastcols.last_plan
+                check(err == 0, f"phase4 {tag} {name} launch {idx} width "
+                                f"{w or 'rule'}: kernel == plain "
+                                f"(max_abs_err {err})")
+                errors[name] = max(errors.get(name, 0), err)
+                times[w] = cuda_ms(lambda: fn(*args, width=w), 3)
+            b_ms, by = bound(name, args, sm_clock_mhz)
+            total += times[0]
+            print(f"phase4 {tag} {name} {' '.join(map(str, call))} launch "
+                  f"{idx} B={len(ms_)} up to {int(max(ms_))}x"
+                  f"{int(max(ns_))} equal=True width={plan.width} "
+                  f"warps={plan.warps} scratch_bytes={plan.scratch_bytes} "
+                  f"cap_bytes={plan.cap_bytes} path_steps="
+                  f"{level_path_steps(affine, ms_, ns_, plan.width)} "
+                  f"kernel_ms={times[0]:.3f} bound_ms={b_ms:.3f} "
+                  f"bound_by={by} share={b_ms / times[0]:.3f} "
+                  f"plain_ms={plain_ms:.1f} widths_ms="
+                  f"{json.dumps({w: round(times[w], 3) for w in widths})}",
+                  flush=True)
+            if idx == 0:
+                timings[name] = (times[0], plain_ms, b_ms, by)
+        print(f"phase4 {tag} {name} {' '.join(map(str, call))}: "
+              f"{len(launches)} launches kernel_ms_total={total:.3f}",
+              flush=True)
+
     score_1k = ("align_score", 1000, "global", "LinearScoring")
     fulltb = ("align_full_tb", 10_000, "local", "LinearScoring")
     score_100k = ("align_score", 100_000, "local", "LinearScoring")
@@ -1868,8 +2019,7 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     run("walk", "K3", fulltb, "walk", kept_of(fulltb, "walk")[0],
         report=True)
     run("walk", "K3", hb, "walk", k3_hb)
-    run("lastcols", "K4", hb, "lastcols", k4_hb[0], report=True)
-    run("lastcols", "K4", hb, "lastcols", k4_hb[-1])
+    levels("lastcols", "K4", hb, k4_hb)
 
     k5_mm = sorted(kept_of(mm, "wavefront_affine", lambda a: not preds(a)),
                    key=cells)
@@ -1883,9 +2033,7 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     run("walk_affine", "K6", a_fulltb, "walk_affine",
         kept_of(a_fulltb, "walk_affine")[0], report=True)
     run("walk_affine", "K6", mm, "walk_affine", k6_mm)
-    run("lastcols_affine", "K5L", mm, "lastcols_affine", k5l_mm[0],
-        report=True)
-    run("lastcols_affine", "K5L", mm, "lastcols_affine", k5l_mm[-1])
+    levels("lastcols_affine", "K5L", mm, k5l_mm)
 
     a_score_100k = ("align_score", 100_000, "local", "AffineScoring")
     alone("wavefront_affine_score", "K5", a_score_100k, "wavefront_affine",
@@ -1913,6 +2061,27 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         ms_, by = bound("swarm", args, sm_clock_mhz)
         print(f"phase4 K7 bound {' '.join(map(str, call))} "
               f"bound_ms={ms_:.4f} bound_by={by}", flush=True)
+
+
+def check_level_plans():
+    """Every K4 / K5L launch of phase 3 kept its boundary columns within
+    the level rule's cap; the largest of each call, beside the cap."""
+    check(LEVEL_PLANS, "phase 3 launched K4 / K5L")
+    largest: dict = {}
+    for call, fn, plan in LEVEL_PLANS:
+        check(plan.scratch_bytes <= plan.cap_bytes,
+              f"{fn} in {' '.join(map(str, call))} at width {plan.width}: "
+              f"scratch {plan.scratch_bytes} <= cap {plan.cap_bytes}")
+        key = (" ".join(map(str, call)), fn)
+        if plan.scratch_bytes >= largest.get(key, (0, None))[0]:
+            largest[key] = (plan.scratch_bytes, plan)
+    for (call, fn), (_, plan) in largest.items():
+        print(f"phase4 level scratch {call} {fn}: largest "
+              f"scratch_gb={plan.scratch_bytes / 1e9:.3f} at width "
+              f"{plan.width} ({plan.warps} warps), cap_gb="
+              f"{plan.cap_bytes / 1e9:.3f}", flush=True)
+    print(f"phase4 level scratch: all {len(LEVEL_PLANS)} K4 / K5L launches "
+          f"within the rule's cap", flush=True)
 
 
 def main() -> int:
@@ -1945,6 +2114,7 @@ def main() -> int:
     timings, errors, kept, whole = {}, {}, [], {}
     phase2(rng, errors)
     phase2_sweeps(errors)
+    phase2_levels(errors)
     phase2_band(rng, errors)
     phase2_collective(rng, errors)
     phase2_swarm_affine_codes(rng, errors)
@@ -1954,6 +2124,7 @@ def main() -> int:
     phase3_genome(rng, kept, counts)
     phase3_mesh(rng, kept, counts)
     phase4(kept, timings, errors, sm_clock_mhz)
+    check_level_plans()
     phase4_band(kept, timings, errors, whole, sm_clock_mhz)
     phase4_mesh(kept, timings, errors, sm_clock_mhz)
 

@@ -786,3 +786,174 @@ def test_sweep_width_rule(emu_card, emu_lib, kernel, sms, ctas, h, n, want):
         assert width(h, n, band.MODE_CODE[mode]) == want, mode
         assert grid(h, n, band.MODE_CODE[mode], want) >= 1
     assert grid(h, n, 0, 12) == -1
+
+
+# --- K4 / K5L, the level sweeps, on the warp strip cores at each width
+# (csrc/lastcols.cu, csrc/lastcols_affine.cu) ---
+
+_LEVEL_WIDTHS = ([("K4", w) for w in lastcols.WIDTHS]
+                 + [("K5L", w) for w in lastcols.AFFINE_WIDTHS])
+
+
+def _level_shapes(case, width):
+    """(rows, columns) of the problems of one launch, in the orientation
+    its kernel sweeps them (K4: subject rows, query columns)."""
+    strip = 32 * width
+    return {
+        # one row, one column, fewer columns than a lane holds, exactly one
+        # strip, one past a strip, and a column of one strip's rows
+        "edges": [(1, 1), (1, strip + 3), (40, 1), (33, max(width - 1, 1)),
+                  (45, strip), (31, strip + 1), (64, 2 * strip)],
+        # rows on both sides of the 32-row chunk (odd for two rows a
+        # step), problems of 1-3 strips mixed in one ticket list
+        "chunks": [(31, 2 * strip + 17), (32, 5), (33, strip + 1),
+                   (63, 3 * strip), (65, strip - 1), (2, 2 * strip + 1),
+                   (97, strip + 40)],
+        # taller than wide, and wider than tall
+        "orientation": [(300, 90), (90, 300), (150, strip + 7),
+                        (strip + 7, 60)],
+    }[case]
+
+
+def _level_case(rng, kernel, shapes):
+    """A launch's (q, s, ms, ns): problem b of `shapes` in K4's transposed
+    or K5L's own orientation, padded to the widest."""
+    if kernel == "K4":
+        ms, ns = [c for _, c in shapes], [r for r, _ in shapes]
+    else:
+        ms, ns = [r for r, _ in shapes], [c for _, c in shapes]
+    B = len(shapes)
+    q = torch.from_numpy(rng.integers(65, 69, (B, max(ms))).astype(np.uint8))
+    s = torch.from_numpy(rng.integers(65, 69, (B, max(ns))).astype(np.uint8))
+    return q, s, torch.tensor(ms), torch.tensor(ns)
+
+
+@pytest.mark.parametrize("case", ["edges", "chunks", "orientation"])
+@pytest.mark.parametrize("kernel,width", _LEVEL_WIDTHS)
+def test_level_kernel_widths(emu_card, emu_lib, kernel, width, case):
+    """K4 and K5L forced to each width they have against their plain
+    versions, bit for bit, on problems of 1 row and of 1 column, narrower
+    than a lane, one strip wide and one past, rows on both sides of the
+    32-row chunk (odd ones for two rows a step), mixed strip counts in
+    one ticket list, taller than wide and wider than tall; K5L with mixed
+    start_gap flags at the bench scorings, a free extension and a free
+    opening; every case also swept by one warp (an emulated card of 2 SMs
+    x 4 CTAs)."""
+    emu_card(2, 4)
+    rng = np.random.default_rng(width + len(case))
+    q, s, ms, ns = _level_case(rng, kernel, _level_shapes(case, width))
+    for grid in (0, 1):
+        if kernel == "K4":
+            for sc in (SC, LinearScoring(3, -2, -2)):
+                got = lastcols.launch(emu_lib, q, s, ms, ns, sc, width=width,
+                                      grid=grid)
+                assert lastcols.last_plan.width == width
+                assert torch.equal(got, lastcols.plain(q, s, ms, ns, sc)), \
+                    (sc, grid)
+            continue
+        for sc in ASC + ASC_EDGES[1:]:
+            sg = _flags(rng, len(ms))
+            got = lastcols.launch_affine(emu_lib, q, s, ms, ns, sc, sg,
+                                         width=width, grid=grid)
+            want = lastcols.plain_affine(q, s, ms, ns, sc, sg)
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a, b), (sc, grid)
+
+
+def test_level_kernel_lengths_on_host(emu_lib):
+    """The level sweeps take the problems' lengths as tensors on either
+    device or as lists (the level drivers keep them on the host), and
+    count one launch each; an empty problem (no strips) leaves zeros."""
+    rng = np.random.default_rng(5)
+    q, s, ms, ns = _level_case(rng, "K4", [(40, 70), (90, 30), (1, 5)])
+    want = lastcols.plain(q, s, ms, ns, SC)
+    before = _build.launches["lastcols"]
+    for m, n in ((ms, ns), (ms.tolist(), ns.tolist()),
+                 (ms.to(torch.int32).numpy(), ns.numpy())):
+        assert torch.equal(lastcols.launch(emu_lib, q, s, m, n, SC), want)
+        assert torch.equal(lastcols.last_cols(q, s, m, n, SC), want)
+    assert _build.launches["lastcols"] - before == 3
+    got_h, got_e = lastcols.launch_affine(emu_lib, q, s, [0, 3, 1],
+                                          [5, 0, 1], ASC[0],
+                                          torch.zeros(3, dtype=torch.bool))
+    assert got_h[:2].eq(0).all() and got_e[:2].eq(0).all()
+    assert lastcols.last_plan.strips == 1
+
+
+def test_level_kernel_refuses_other_widths(emu_lib):
+    """A width K4 or K5L does not have (K4 has no 4 columns a lane, K5L no
+    32): the launch is refused, and the wrapper raises."""
+    q, s, ms, ns = _level_case(np.random.default_rng(0), "K4", [(10, 10)])
+    for width in (12, 4):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            lastcols.launch(emu_lib, q, s, ms, ns, SC, width=width)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lastcols.launch_affine(emu_lib, q, s, ms, ns, ASC[0],
+                               torch.zeros(1, dtype=torch.bool), width=32)
+
+
+def _halves(parts: int, m: int, n: int):
+    """The (ms, ns) of a level of `parts` parts of an m x n alignment: each
+    part's two halves, m / parts rows of n / (2 parts) columns."""
+    h, w = m // parts, n // (2 * parts)
+    return (np.full(2 * parts, h, np.int32), np.full(2 * parts, w, np.int32))
+
+
+def _rule(lib, kernel, ms, ns, cap):
+    name = "anyseq_lastcols" + ("_affine" if kernel == "K5L" else "")
+    args = (ms.ctypes.data, ns.ctypes.data, len(ms))
+    width = getattr(lib, name + "_width")(*args, cap)
+    return width, getattr(lib, name + "_grid")(*args, width, 0)
+
+
+def _scratch(kernel, ms, ns, width):
+    """The bytes of boundary columns a launch at `width` holds."""
+    rows, cols = (ns, ms) if kernel == "K4" else (ms, ns)
+    strips = -(-cols.astype(np.int64) // (32 * width))
+    return int(((strips - 1) * rows).sum()) * (8 if kernel == "K5L" else 4)
+
+
+@pytest.mark.parametrize("kernel,parts,m,n,cap_gb,want", [
+    # the 100k semiglobal alignments' levels 2, 5 and 8: K4 at 16 columns a
+    # lane, K5L at 8 (the fastest widths measured on the card)
+    ("K4", 4, 100_000, 100_000, 20, 16),
+    ("K4", 32, 100_000, 100_000, 20, 16),
+    ("K4", 256, 100_000, 100_000, 20, 16),
+    ("K5L", 4, 100_000, 100_000, 20, 8),
+    ("K5L", 32, 100_000, 100_000, 20, 8),
+    ("K5L", 256, 100_000, 100_000, 20, 8),
+    # the 1 Mbp alignment's levels fill the card: K4 at 32
+    ("K4", 4, 1_000_000, 1_000_000, 20, 32),
+    ("K4", 64, 1_000_000, 1_000_000, 20, 32),
+    # the 2.2 Mbp alignments' first batched levels: K4 at 32, K5L at 16
+    # (its H and E columns take 9.4 GB there, 18.9 GB at 8 columns a lane)
+    ("K4", 8, 2_200_000, 2_200_000, 20, 32),
+    ("K5L", 8, 2_200_000, 2_200_000, 20, 16),
+    ("K5L", 64, 2_200_000, 2_200_000, 20, 16),
+    # the cap: K5L at level 2 of the 100k alignment takes 76.8 MB of H and
+    # E columns at 8 columns a lane, 38.4 MB at 16; K4 19.2 MB at 16 and
+    # 9.6 MB at 32; a cap nothing fits under takes the widest width
+    ("K5L", 4, 100_000, 100_000, 0.05, 16),
+    ("K5L", 4, 100_000, 100_000, 0.01, 16),
+    ("K4", 4, 100_000, 100_000, 0.01, 32),
+    ("K4", 8, 2_200_000, 2_200_000, 0, 32),
+])
+def test_level_width_rule(emu_card, emu_lib, kernel, parts, m, n, cap_gb,
+                          want):
+    """anyseq_lastcols_width and anyseq_lastcols_affine_width (band_sweep.cuh
+    level_width) on an emulated H100 (132 SMs x 4 CTAs): the width of least
+    modelled time at the levels of the 100k, 1 Mbp and 2.2 Mbp alignments,
+    among those whose boundary columns fit the cap (else the widest); the
+    chosen width's columns never pass the cap where a width fits, and the
+    grid reported is at most the card's resident warps."""
+    emu_card(132, 4)
+    ms, ns = _halves(parts, m, n)
+    cap = int(cap_gb * 10**9)
+    width, grid = _rule(emu_lib, kernel, ms, ns, cap)
+    assert width == want
+    widths = lastcols.WIDTHS if kernel == "K4" else lastcols.AFFINE_WIDTHS
+    if any(_scratch(kernel, ms, ns, w) <= cap for w in widths):
+        assert _scratch(kernel, ms, ns, width) <= cap
+    else:
+        assert width == widths[0]
+    assert 1 <= grid <= 132 * 4 * 4
