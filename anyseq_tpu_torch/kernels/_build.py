@@ -24,7 +24,7 @@ SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
            "walk_affine.cu", "lastcols_affine.cu", "swarm.cu", "band.cu",
            "band_affine.cu")
 HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh", "band_sweep.cuh",
-           "band_sweep_affine.cuh")
+           "band_sweep_affine.cuh", "walk_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -52,8 +52,8 @@ SIGNATURES = {
     "anyseq_lastcols_grid": (_P, _P, _I, _I, _I),
     "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
-                           _P, _P, _I, _P, _P),
+    "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P,
+                           _P, _I, _P, _P),
     "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                                _P),

@@ -9,7 +9,8 @@
 // barrier a shuffle keeps a fast lane from overwriting a slot that a
 // slow lane has yet to read). Every lane must reach each of them, as on
 // the card with a full mask. The DPX intrinsics are their formulas in
-// plain C++, with the 32-bit add wrapping as the card's does. __shared__
+// plain C++, with the 32-bit add wrapping as the card's does, and so is
+// the byte permute __byte_perm (PRMT). __shared__
 // variables become function statics, which is right while one CTA runs
 // at a time. Because CTAs run in order, a strip's left neighbour has
 // always finished before the strip starts: wait_for() checks that the
@@ -40,6 +41,12 @@
 
 struct alignas(16) int4 {
   int x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+struct alignas(8) uint2 {
+  unsigned x, y;
 };
 
 struct emu_dim3 {
@@ -107,6 +114,15 @@ inline int __viaddmax_s32_relu(int a, int b, int c) {
 inline int __vimax3_s32(int a, int b, int c) {
   const int m = a > b ? a : b;
   return m > c ? m : c;
+}
+// PRMT: byte n of the result is byte (s >> 4n) & 7 of the pair y:x
+// (the walk cores' unpack of codes to bytes; no sign replication).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = (unsigned long long)y << 32 | x;
+  unsigned out = 0;
+  for (int n = 0; n < 4; ++n)
+    out |= (unsigned)(v >> (8 * ((s >> (4 * n)) & 7)) & 0xff) << (8 * n);
+  return out;
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline void __threadfence_system() { __threadfence(); }

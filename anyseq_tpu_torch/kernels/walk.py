@@ -1,5 +1,7 @@
 """K3 and K6 wrappers: the batched traceback walks over packed codes,
-linear (``csrc/walk.cu``) and affine 3-state (``csrc/walk_affine.cu``).
+linear (``csrc/walk.cu``) and affine 3-state (``csrc/walk_affine.cu``),
+one warp a walk over code windows staged in shared memory
+(``csrc/walk_core.cuh``).
 
 On a CPU tensor :func:`walk` and :func:`walk_affine` run the plain
 versions (:data:`plain`, ``engine.batch.walk_batch_ends``, and
@@ -93,7 +95,10 @@ def walk_affine(words, q, s, ends, mode: Mode, sgap=None, egap=None):
 
 
 def launch_affine(lib, words, q, s, ends, mode: Mode, sgap, egap):
-    """Launch the affine kernel of `lib`, wherever the tensors lie."""
+    """Launch the affine kernel of `lib`, wherever the tensors lie. It
+    takes :data:`plain_affine`'s arguments, so that a launch can be held
+    to the plain version, but the kernel reads no `sgap`: the start-gap
+    flag only sets PE on row -1, where E and H both move left."""
     B, M, NW = words.shape
     L = M + s.shape[1]
     dev = words.device
@@ -103,9 +108,9 @@ def launch_affine(lib, words, q, s, ends, mode: Mode, sgap, egap):
     starts = torch.empty((B, 2), dtype=torch.int32, device=dev)
     err = lib.anyseq_walk_affine(
         words.data_ptr(), M * NW, NW, q.data_ptr(), q.stride(0),
-        s.data_ptr(), s.stride(0), ends.data_ptr(), sgap.data_ptr(),
-        egap.data_ptr(), B, int(mode is Mode.GLOBAL), out_q.data_ptr(),
-        out_s.data_ptr(), L, starts.data_ptr(), _build.stream(dev),
+        s.data_ptr(), s.stride(0), ends.data_ptr(), egap.data_ptr(), B,
+        int(mode is Mode.GLOBAL), out_q.data_ptr(), out_s.data_ptr(), L,
+        starts.data_ptr(), _build.stream(dev),
     )
     _build.check(err, "walk_affine")
     _build.launches["walk_affine"] += 1

@@ -13,7 +13,8 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    of their affine modes and K5 (``band_affine.cu``) and of the level
    sweeps K4 and K5L (``lastcols.cu``, ``lastcols_affine.cu``), at every
    strip width, checked to spill nothing, each kernel's SASS searched for
-   the DPX instructions of the chain (VIADDMNMX, VIMNMX3).
+   the DPX instructions of the chain (VIADDMNMX, VIMNMX3); and the walks
+   K3 and K6 (``walk.cu``, ``walk_affine.cu``), checked to spill nothing.
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K1 and
@@ -30,7 +31,11 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    without columns; K7's affine codes at 4,096 problems. K8 and K10
    (and their affine modes) also with 1, 7 and strips - 1 warps beside
    the grid they choose; K8 from a boundary a little above SCORE_MIN,
-   K8 affine from one on both sides of NEG (ge = 0, go = 0).
+   K8 affine from one on both sides of NEG (ge = 0, go = 0). K3 and K6
+   across their windows: a ~2000 x 3000 full traceback whose walk runs
+   a gap of 1,300 columns and one of 300 rows (3 modes), a GLOBAL walk
+   along the top halo row for 1,000 columns, and 96 stripes of 1 to 512
+   rows with dead walks.
 3. Five main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
@@ -85,11 +90,15 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    plain version.
    K8 alone on one 262,144-row band at 1,000,000 and 4,600,000 columns,
    and K8 affine at 1,000,000, 3 runs each: median, spread, grid and
-   share of its bound.
+   share of its bound. K3 and K6 at the 10k full tracebacks, the ~2000 x
+   3000 walks of phase 2, the largest stripe chunk of the 100k ``align``
+   and (K3) the largest chunk of ``align_batch``, each with its bound,
+   the bound's kind and the share.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
-   SMs x 64 int32 lanes x the top SM clock), the card's line, and the
-   final JSON line.
+   SMs x 64 int32 lanes x the top SM clock; a walk's also no less than
+   its longest walk's steps, one dependent shared load each), the card's
+   line, and the final JSON line.
 
 Exits with code 2 and prints no result without a CUDA device, or when
 run outside a checkout of the repository.
@@ -164,6 +173,9 @@ OPS = {"linear": 5, "affine": 7, "best": 0.5, "codes": 5, "codes4": 9,
        "walk": 8}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_LANES_PER_SM = 64
+# the shortest dependent step a walk can make: a shared load whose address
+# hangs on the load before (tools/step_probe.py, H100 at 700 W)
+SHARED_LOAD_CYCLES = 34.0
 # the affine scoring of the JAX package's bench suite (bench/suite.py)
 AFFINE = (2, -1, -3, -1)
 # the genome path: the JAX bench suite's genome rows (1 Mbp,
@@ -190,7 +202,9 @@ REDESIGNED = {"wavefront_score": "csrc/band_sweep.cuh",
               "band_affine": "csrc/band_sweep_affine.cuh",
               "band_collective_affine": "csrc/band_sweep_affine.cuh",
               "lastcols": "csrc/band_sweep.cuh",
-              "lastcols_affine": "csrc/band_sweep_affine.cuh"}
+              "lastcols_affine": "csrc/band_sweep_affine.cuh",
+              "walk": "csrc/walk_core.cuh",
+              "walk_affine": "csrc/walk_core.cuh"}
 # a linear construction long enough that its 4-part level has parts
 # taller than kernels.band.M_MAX (~m / 4 > 512 Ki rows)
 HB_GENOME_BP = 2_200_000
@@ -202,6 +216,9 @@ MESH_2D_BP = 100_000             # the pairs of the 2 x 2 collective batch
 SINGLE: dict = {}
 # (public call, kernel, lastcols.Plan) of every K4 / K5L launch of phase 3
 LEVEL_PLANS: list = []
+# (kernel, tag, shape, launch arguments) of phase 2's ~2000 x 3000 walks,
+# timed with their bounds in phase 4
+WALK_SHAPES: list = []
 
 
 def check(cond: bool, what: str) -> None:
@@ -307,7 +324,8 @@ def phase2(rng, errors):
     """Each kernel's wrapper on CUDA tensors against its plain version."""
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.engine import batch, linmem
-    from anyseq_tpu_torch.kernels import lastcols, swarm, walk, wavefront
+    from anyseq_tpu_torch.kernels import _build, lastcols, swarm, walk, \
+        wavefront
 
     sc = LinearScoring()
     dev = torch.device("cuda")
@@ -345,6 +363,8 @@ def phase2(rng, errors):
                             lambda: walk.walk(*args),
                             lambda: walk.plain(*args))
         record("walk", err)
+        WALK_SHAPES.append(("walk", "K3", f"{mode.value} {m}x{n}",
+                            (_build.library(), *args)))
 
     # K4: a ragged batch of 64 halves
     B, M, N = 64, 1500, 3000
@@ -398,6 +418,8 @@ def phase2(rng, errors):
             f"phase2 K6 walk_affine {mode.value} 1 problem {m}x{n}",
             lambda: walk.walk_affine(*args), lambda: walk.plain_affine(*args))
         record("walk_affine", err)
+        WALK_SHAPES.append(("walk_affine", "K6", f"{mode.value} {m}x{n}",
+                            (_build.library(), *args)))
 
     # K5L: 64 ragged halves with mixed start-gap flags
     B, M, N = 64, 1500, 3000
@@ -439,6 +461,100 @@ def phase2(rng, errors):
                 lambda: swarm.score_pairs_swarm(*args),
                 lambda: swarm.plain(*args))
             record(name, err)
+
+
+def longest_runs(out_q, out_s) -> tuple:
+    """(columns, rows): the longest run of gaps in the query (a horizontal
+    run of the walk) and in the subject (a vertical run), over a walk's
+    live positions."""
+    runs = []
+    for row in (out_q, out_s):
+        seq = row[row != ord(" ")].cpu().numpy() == ord("_")
+        edges = np.flatnonzero(np.diff(np.r_[0, seq.astype(np.int8), 0]))
+        runs.append(int((edges[1::2] - edges[::2]).max()) if len(edges)
+                    else 0)
+    return tuple(runs)
+
+
+def phase2_walks(rng, errors):
+    """K3 and K6 across their windows (``csrc/walk_core.cuh``: 96 rows of
+    112 columns, the next loaded 32 steps ahead) against their plain
+    versions, bit for bit: a ~2000 x 3000 pair whose full traceback walks
+    a horizontal gap run longer than two windows' widths and a vertical
+    one longer than two windows' heights (3 modes; checked on the GLOBAL
+    walk's strings); a GLOBAL walk that reaches the top halo row 1000
+    columns from column 0; 96 stripes of mixed heights (1 to 512 rows)
+    with dead walks and, affine, mixed start- and end-gap flags."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.engine import batch, linmem
+    from anyseq_tpu_torch.kernels import _build, walk, wavefront
+
+    dev = torch.device("cuda")
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+
+    def dna(n):
+        return torch.from_numpy(alphabet[rng.integers(0, 4, n)]).to(dev)
+
+    def run_of(byte, n):
+        return torch.full((n,), byte, dtype=torch.uint8, device=dev)
+
+    # inserts of a byte that matches nothing: one run each, unbroken
+    base = dna(1700)
+    gap_runs = (torch.cat([base[:800], run_of(ord("X"), 300), base[800:]]),
+                torch.cat([base[:300], run_of(ord("Z"), 1300), base[300:]]))
+    s = dna(3000)
+    cases = (("gap runs", gap_runs, list(Mode)),
+             ("halo row", (s[1000:], s), [Mode.GLOBAL]))
+    no_gap = torch.zeros(1, dtype=torch.bool, device=dev)
+    for scoring in (LinearScoring(), AffineScoring(*AFFINE)):
+        affine = isinstance(scoring, AffineScoring)
+        name, tag = ("walk_affine", "K6") if affine else ("walk", "K3")
+        fn = walk.walk_affine if affine else walk.walk
+        plain = walk.plain_affine if affine else walk.plain
+        for label, (q, s), modes in cases:
+            m, n = q.numel(), s.numel()
+            for mode in modes:
+                outs = wavefront.score(q, s, mode, scoring, emit_preds=True)
+                end = linmem.extract_end(outs, m, n, mode)[None, 1:]
+                args = (outs["preds"][None], q[None], s[None], end, mode)
+                args += (no_gap, no_gap) if affine else ()
+                err, _, _ = compare(
+                    f"phase2 {tag} {name} {label} {mode.value} {m}x{n}",
+                    lambda: fn(*args), lambda: plain(*args))
+                errors[name] = max(errors.get(name, 0), err)
+                WALK_SHAPES.append((name, tag, f"{label} {mode.value} "
+                                               f"{m}x{n}",
+                                    (_build.library(), *args)))
+                out_q, out_s, start = fn(*args)
+                if label == "gap runs" and mode is Mode.GLOBAL:
+                    cols, rows = longest_runs(out_q[0], out_s[0])
+                    check(cols > 2 * 112 and rows > 2 * 96,
+                          f"{tag} {label}: runs of {cols} columns and "
+                          f"{rows} rows cross two windows")
+                    print(f"phase2 {tag} {label}: longest runs {cols} "
+                          f"columns, {rows} rows", flush=True)
+                if label == "halo row":
+                    check(start.tolist() == [[0, 0]] and bool(
+                        (out_q[0, :1000] == ord("_")).all()),
+                          f"{tag} {label}: the walk runs along row -1")
+        # 96 stripes of mixed heights, every fifth walk dead
+        B, M, N = 96, 512, 256
+        q3, s3, ms_, ns_ = random_batch(rng, dev, B, M, N)
+        sg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+        eg = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+        if affine:
+            words = batch.preds_batch_affine(q3, s3, ms_, ns_, scoring,
+                                             sg)[0]
+        else:
+            words = batch.preds_batch(q3, s3, ms_, ns_, scoring)[0]
+        ends = (torch.stack([ms_, ns_], 1) - 1).to(torch.int32)
+        ends[::5] = -1
+        args = (words, q3, s3, ends, Mode.GLOBAL)
+        args += (sg, eg) if affine else ()
+        err, _, _ = compare(f"phase2 {tag} {name} {B} stripes of 1 to {M} "
+                            f"rows up to {N} columns, {len(ends[::5])} dead",
+                            lambda: fn(*args), lambda: plain(*args))
+        errors[name] = max(errors.get(name, 0), err)
 
 
 def sweep_geometry(affine: bool, m: int, n: int, mode, width: int = 0):
@@ -957,13 +1073,33 @@ def cell_ops(affine: bool, args) -> float:
                                                     else 0)
 
 
+def walk_steps(out):
+    """(steps, chain steps) of each walk of a walk's outputs (out_q, out_s,
+    starts): the positions it writes, and those of them at cells of the
+    matrix (i, j >= 0), a dependent load each. The GLOBAL halo's steps
+    load nothing: its straight runs are written by the lanes at once. A
+    step at (i, j) moves to (i - 1, j) unless out_q holds a gap, to
+    (i, j - 1) unless out_s does, so its cell is the walk's stop cell
+    (starts - 1) plus the moves of the steps up to it, in position
+    order."""
+    from anyseq_tpu_torch.core.types import EMPTY_SYM, GAP_SYM
+
+    out_q, out_s, starts = out
+    live = out_q != EMPTY_SYM
+    i = starts[:, :1] - 1 + (live & (out_q != GAP_SYM)).int().cumsum(1)
+    j = starts[:, 1:] - 1 + (live & (out_s != GAP_SYM)).int().cumsum(1)
+    return live.sum(1), (live & (i >= 0) & (j >= 0)).sum(1)
+
+
 def bound(fn: str, args, sm_clock_mhz: float):
     """(bound_ms, bound_by) of one launch of `fn` on `args`: the larger of
     the bytes it must move (each input read once, each output written
     once) over the card's memory rate and its int32 instructions (OPS a
     cell or a walk step) over 132 SMs x 64 int32 lanes x the top SM clock.
     A walk counts the steps this run's data takes (the positions it
-    writes)."""
+    writes), and its bound is also no less than its chain: the longest
+    walk's steps at cells of the matrix (walk_steps), each a dependent
+    load of at least SHARED_LOAD_CYCLES, at the top SM clock ("chain")."""
     from anyseq_tpu_torch.kernels import band
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -991,10 +1127,15 @@ def bound(fn: str, args, sm_clock_mhz: float):
                                   else band.STRIP)))
         ops = h * n * cell_ops(affine, args)
     elif fn.startswith("walk"):
-        out_q = launcher(fn)(*args)[0]
-        steps = int((out_q != ord(" ")).sum())
-        nbytes = steps * (4 + 2 + 2) + 16 * out_q.shape[0]
+        live, inside = walk_steps(launcher(fn)(*args))
+        steps = int(live.sum())
+        nbytes = steps * (4 + 2 + 2) + 16 * live.numel()
         ops = steps * OPS["walk"]
+        t_chain = (int(inside.max()) * SHARED_LOAD_CYCLES
+                   / (sm_clock_mhz * 1e6))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+        if t_chain > max(t_bytes, t_ops):
+            return t_chain * 1e3, "chain"
     else:
         q, s, ms, ns = args[1:5]
         ms, ns = ms.to(torch.int64), ns.to(torch.int64)
@@ -1284,13 +1425,16 @@ def phase2_swarm_affine_codes(rng, errors):
         errors["swarm_preds"] = max(errors.get("swarm_preds", 0), err)
 
 
-# the sources whose ptxas report phase 1 prints, and those among them
-# that must not spill and whose SASS must hold the chain's DPX
-# instructions (the warp strip cores)
+# the sources whose ptxas report phase 1 prints, those among them that
+# must not spill and whose SASS must hold the chain's DPX instructions
+# (the warp strip cores), and the walks, which must not spill either (a
+# window's loads wait in registers)
 PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
-                 "lastcols_affine.cu", "band.cu", "band_affine.cu")
+                 "lastcols_affine.cu", "band.cu", "band_affine.cu",
+                 "walk.cu", "walk_affine.cu")
 WARP_CORES = ("band.cu", "band_affine.cu", "lastcols.cu",
               "lastcols_affine.cu")
+WALK_CORES = ("walk.cu", "walk_affine.cu")
 
 
 def kernel_args(mangled: str):
@@ -1378,9 +1522,10 @@ def build_report():
                           f"registers, {spills} bytes spilled"
                           + (f", DPX {json.dumps(counts)}" if counts
                              else ""), flush=True)
-                    if name in WARP_CORES:
+                    if name in WARP_CORES + WALK_CORES:
                         check(spills == 0,
                               f"{name} {kernel}<{flags}> spills nothing")
+                    if name in WARP_CORES:
                         # the chain's max-plus in every kernel; the
                         # three-way max of the best where there is one (the
                         # level sweeps K4 and K5L have none)
@@ -1945,6 +2090,17 @@ def phase4(kept, timings, errors, sm_clock_mhz):
             timings[name] = (ms, plain_ms, *bound(fn, args, sm_clock_mhz))
         if fn.startswith("wavefront") and not preds(args):
             geometry(tag, name, call, fn, args, ms)
+        if fn.startswith("walk"):
+            walk_bound(label, fn, args, ms)
+
+    def walk_bound(label, fn, args, ms):
+        """A walk launch's time beside its bound, kind and share."""
+        b_ms, by = bound(fn, args, sm_clock_mhz)
+        live, inside = walk_steps(launcher(fn)(*args))
+        print(f"{label} walks={int((live > 0).sum())} longest_steps="
+              f"{int(live.max())} chain_steps={int(inside.max())} "
+              f"kernel_ms={ms:.4f} bound_ms={b_ms:.4f} "
+              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
 
     def alone(name, tag, call, fn, args):
         """A K1 / K5 launch timed alone: the plain version would take
@@ -2050,6 +2206,10 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     run("swarm_preds", "K7", aln_10k, "swarm", largest(aln_10k, "swarm"),
         report=True)
     run("walk", "K3", aln_10k, "walk", largest(aln_10k, "walk"))
+    # phase 2's ~2000 x 3000 walks (compared there), timed alone
+    for name, tag, case, args in WALK_SHAPES:
+        walk_bound(f"phase4 {tag} {name} {case}", name, args,
+                   cuda_ms(lambda: launcher(name)(*args), 5))
     for call in (("align_scores_batch", 256, 10_000, "local",
                   "AffineScoring"),
                  ("align_batch", 256, 1000, "semiglobal", "LinearScoring"),
@@ -2113,6 +2273,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     timings, errors, kept, whole = {}, {}, [], {}
     phase2(rng, errors)
+    # its own generator: the later phases' seeded pairs stay as they were
+    phase2_walks(np.random.default_rng(SEED + 10), errors)
     phase2_sweeps(errors)
     phase2_levels(errors)
     phase2_band(rng, errors)

@@ -205,6 +205,127 @@ def test_walk_affine_kernel(emu_lib, mode, sc):
         assert torch.equal(a, b)
 
 
+# The walks' windows (csrc/walk_core.cuh) hold 96 rows of 112 columns and
+# are prefetched 32 steps ahead: problems several windows tall and wide,
+# gap runs longer than two windows, walks along the GLOBAL halo, stripes
+# with dead walks, and a full traceback of (m + n) % 256 == 0.
+WALK_CASES = ["300x450", "gap runs", "halo", "stripes", "len256"]
+
+
+def _walk_case(case, affine):
+    """(words, q, s, ends, sgap, egap) of a walk case: GLOBAL stripe codes
+    (``preds_batch``), or (len256) one full-traceback matrix."""
+    rng = np.random.default_rng(WALK_CASES.index(case) + 10 * affine)
+    sc = ASC[0] if affine else SC
+
+    def dna(n):
+        return rng.integers(65, 69, n).astype(np.uint8)
+
+    if case == "len256":
+        q, s = torch.from_numpy(dna(100)), torch.from_numpy(dna(156))
+        outs = (wavefront.plain_affine_preds(q, s, Mode.GLOBAL, sc) if affine
+                else wavefront.plain_preds(q, s, Mode.GLOBAL, sc))
+        end = linmem.extract_end(outs, 100, 156, Mode.GLOBAL)[None, 1:]
+        flags = torch.zeros(1, dtype=torch.bool)
+        return (outs["preds"][None], q[None], s[None], end.to(torch.int32),
+                flags, flags)
+    if case == "300x450":
+        pairs = [(dna(int(rng.integers(200, 301))),
+                  dna(int(rng.integers(250, 451)))) for _ in range(5)]
+    elif case == "gap runs":
+        # a horizontal run of 300 columns and a vertical one of 200 rows:
+        # inserts of a byte that matches nothing
+        a, b = dna(300), dna(300)
+        x, z = np.full(300, ord("X"), np.uint8), np.full(200, ord("Z"),
+                                                         np.uint8)
+        pairs = [(a, np.concatenate([a[:150], x, a[150:]])),
+                 (np.concatenate([b[:100], z, b[100:]]), b)]
+    elif case == "halo":
+        # q a suffix of s: the walk reaches row -1 near column 350; s a
+        # suffix of q: column -1 near row 330
+        a = dna(400)
+        pairs = [(a[350:], a), (a, a[330:]), (a[380:], dna(40))]
+    else:
+        pairs = [(dna(int(rng.integers(1, 257))), dna(int(rng.integers(1, 257))))
+                 for _ in range(9)]
+    B = len(pairs)
+    M = max(len(x) for x, _ in pairs)
+    N = max(len(y) for _, y in pairs)
+    q = torch.from_numpy(rng.integers(65, 69, (B, M)).astype(np.uint8))
+    s = torch.from_numpy(rng.integers(65, 69, (B, N)).astype(np.uint8))
+    for b, (x, y) in enumerate(pairs):
+        q[b, :len(x)] = torch.from_numpy(x)
+        s[b, :len(y)] = torch.from_numpy(y)
+    ms = torch.tensor([len(x) for x, _ in pairs])
+    ns = torch.tensor([len(y) for _, y in pairs])
+    sg, eg = _flags(rng, B), _flags(rng, B)
+    if affine:
+        words, _, _ = batch.preds_batch_affine(q, s, ms, ns, sc, sg)
+    else:
+        words, _ = batch.preds_batch(q, s, ms, ns, SC)
+    ends = (torch.stack([ms, ns], 1) - 1).to(torch.int32)
+    if case == "stripes":
+        ends[[0, 4, 8]] = -1
+    return words, q, s, ends, sg, eg
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_kernel_windows(emu_lib, case, mode):
+    """K3 across windows, against its plain version."""
+    words, q, s, ends, _, _ = _walk_case(case, False)
+    got = walk.launch(emu_lib, words, q, s, ends, mode)
+    want = walk.plain(words, q, s, ends, mode)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_affine_kernel_windows(emu_lib, case, mode):
+    """K6 across windows (E and F runs longer than two windows, mixed
+    start- and end-gap flags), against its plain version."""
+    words, q, s, ends, sg, eg = _walk_case(case, True)
+    got = walk.launch_affine(emu_lib, words, q, s, ends, mode, sg, eg)
+    want = walk.plain_affine(words, q, s, ends, mode, sg, eg)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["K3", "K6"])
+def test_walk_kernel_windows_match_xla(emu_lib, affine):
+    """A window-crossing stripe batch: the port's terminal pred sweep and
+    the emulated walk give the strings of the JAX package's
+    ``preds_walk_batch`` (``_affine``) on XLA:CPU."""
+    import jax.numpy as jnp
+
+    from anyseq_tpu.core.types import AffineScoring as JaxAffine
+    from anyseq_tpu.core.types import LinearScoring as JaxLinear
+    from anyseq_tpu.engine import batch as jax_batch
+
+    words, q, s, ends, sg, eg = _walk_case("gap runs", affine)
+    B, M = q.shape
+    N = s.shape[1]
+    ms, ns = ends[:, 0] + 1, ends[:, 1] + 1
+    jargs = (jnp.asarray(q.numpy(), jnp.int32),
+             jnp.asarray(s.numpy(), jnp.int32), jnp.asarray(ms.numpy()),
+             jnp.asarray(ns.numpy()))
+    if affine:
+        ref_q, ref_s, _ = jax_batch.preds_walk_batch_affine(
+            *jargs, JaxAffine(2, -1, -3, -1), jnp.asarray(sg.numpy()),
+            jnp.asarray(eg.numpy()))
+        got = walk.launch_affine(emu_lib, words, q, s, ends, Mode.GLOBAL,
+                                 sg, eg)
+    else:
+        ref_q, ref_s = jax_batch.preds_walk_batch(*jargs,
+                                                  JaxLinear(2, -1, -1))
+        got = walk.launch(emu_lib, words, q, s, ends, Mode.GLOBAL)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.asarray(ref_q)[:, :M + N])
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(ref_s)[:, :M + N])
+
+
 @pytest.mark.parametrize("sc", [SC, LinearScoring(3, -2, -2)] + ASC, ids=str)
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
 @pytest.mark.parametrize("B,M,N", [(1, 1, 1), (127, 30, 50), (129, 40, 17),

@@ -42,13 +42,15 @@ whose mangled names hold one of NAMES (comma-separated) to DIR (default
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from _ab import (child, emit, equal_outputs, grouped, import_tree, in_turns,
+                 smi, stats)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 2024
@@ -57,12 +59,6 @@ TALL = (524_288, 1_000_000)       # the tallest one-piece sweep, x 1 M
 GENOME_BP = 1_000_000
 ECOLI_BP = 4_600_000
 AFFINE = (2, -1, -3, -1)
-
-
-def smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
 
 
 def checksum(out) -> list:
@@ -90,23 +86,6 @@ def timed_runs(fn, reps: int):
         check = checksum(out)
         del out
     return runs, check
-
-
-def emit(**line) -> None:
-    line["after"] = smi("clocks.sm,power.draw,temperature.gpu")
-    if "runs_ms" in line:
-        line["median_ms"] = float(np.median(line["runs_ms"]))
-    print(json.dumps(line), flush=True)
-
-
-def import_tree(tree: str):
-    """The tree's package, its kernels built."""
-    sys.path.insert(0, tree)
-    from anyseq_tpu_torch.kernels import _build
-
-    if not _build.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"imported {_build.__file__}, not {tree}'s")
-    return _build.library()
 
 
 def sweep_shapes(dev):
@@ -325,57 +304,26 @@ def public_calls(tree: str) -> None:
         emit(tree=tree, call=name, walls_s=walls, check=out)
 
 
-def child(args) -> list:
-    """One process of a plan; its JSON lines."""
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
-                         capture_output=True, text=True)
-    sys.stdout.write(out.stdout)
-    if out.returncode:
-        sys.stderr.write(out.stderr)
-        raise SystemExit(out.returncode)
-    return [json.loads(x) for x in out.stdout.splitlines()]
-
-
-def equal_outputs(lines) -> bool:
-    """Each measurement's outputs equal across its runs."""
-    seen: dict = {}
-    for x in lines:
-        key = (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
-               x.get("call"))
-        seen.setdefault(key, set()).add(json.dumps(x["check"]))
-    bad = {k: v for k, v in seen.items() if len(v) > 1}
-    if bad:
-        print(f"k1_ab: outputs differ: {bad}", file=sys.stderr)
-    return not bad
+def key_of(x) -> tuple:
+    return (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
+            x.get("call"))
 
 
 def summary(lines, groups) -> None:
     """Median and spread of each measurement, by `groups` (a key of the
     lines: tree, or width)."""
     print(f"medians ({smi('name,power.limit')}):", flush=True)
-    keys = dict.fromkeys((x.get("kernel"), x.get("shape"), x.get("m"),
-                          x.get("n"), x.get("call")) for x in lines)
-    for key in keys:
-        got = [x for x in lines
-               if (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
-                   x.get("call")) == key]
-        for group in dict.fromkeys(tuple(x.get(g) for g in groups)
-                                   for x in got):
-            sel = [x for x in got
-                   if tuple(x.get(g) for g in groups) == group]
-            label = " ".join(str(k) for k in key if k is not None)
-            tag = " ".join(f"{g}={v}" for g, v in zip(groups, group))
-            if "walls_s" in sel[0]:
-                walls = [x["walls_s"] for x in sel]
-                print(f"{label} {tag}: walls_s {walls}", flush=True)
-                continue
-            runs = [r for x in sel for r in x["runs_ms"]]
-            med = float(np.median(runs))
-            extra = (f" grid={sel[0]['grid']} rule={sel[0]['rule']}"
-                     if "grid" in sel[0] else "")
-            print(f"{label} {tag}{extra}: median_ms={med:.3f} "
-                  f"spread={(max(runs) - min(runs)) / med:.3f} runs={runs}",
-                  flush=True)
+    for key, group, sel in grouped(
+            lines, key_of, lambda x: tuple(x.get(g) for g in groups)):
+        label = " ".join(str(k) for k in key if k is not None)
+        tag = " ".join(f"{g}={v}" for g, v in zip(groups, group))
+        if "walls_s" in sel[0]:
+            walls = [x["walls_s"] for x in sel]
+            print(f"{label} {tag}: walls_s {walls}", flush=True)
+            continue
+        extra = (f" grid={sel[0]['grid']} rule={sel[0]['rule']}"
+                 if "grid" in sel[0] else "")
+        print(f"{label} {tag}{extra}: {stats(sel)[1]}", flush=True)
 
 
 def sass(kernels: str, out_dir: str) -> None:
@@ -441,19 +389,15 @@ def main() -> int:
         print(f"check: K1 and K5 at every width equal to their plain "
               f"versions {errors}", flush=True)
     if a.sweep:
-        lines = child(["--widths", "--reps", str(a.reps)])
-        if not equal_outputs(lines):
+        lines = child(__file__, ["--widths", "--reps", str(a.reps)])
+        if not equal_outputs(lines, key_of, "k1_ab"):
             return 1
         summary(lines, ("width",))
     if a.parent:
-        parent = os.path.abspath(a.parent)
-        lines = []
-        for tree in (parent, ROOT, ROOT, parent):
-            lines += child(["--tree", tree, "--reps", str(a.reps)])
-        if not equal_outputs(lines):
+        lines = in_turns(__file__, ROOT, os.path.abspath(a.parent), a.reps,
+                         key_of, "k1_ab")
+        if lines is None:
             return 1
-        for x in lines:
-            x["which"] = "older" if x["tree"] == parent else "this"
         summary(lines, ("which",))
     print("k1_ab ok: outputs equal", flush=True)
     return 0

@@ -38,13 +38,15 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import json
 import os
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from _ab import (child, emit, equal_outputs, grouped, import_tree, in_turns,
+                 smi, stats, timed_runs)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 2024
@@ -56,12 +58,6 @@ GENOME_BP = 1_000_000
 HB_GENOME_BP = 2_200_000
 
 
-def smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-
-
 def checksum(out) -> list:
     """Sums of a level sweep's output columns, plain and weighted, to hold
     runs equal."""
@@ -71,60 +67,6 @@ def checksum(out) -> list:
     w = torch.arange(outs[0].shape[1], device=outs[0].device) % 7 + 1
     return [int(c.long().sum()) for c in outs] + [
         int((c.long() * w).sum()) for c in outs]
-
-
-def timed_runs(fn, reps: int):
-    """After one warm-up, `reps` runs of fn() under torch.profiler: each
-    run's K4 / K5L kernel time on the device (ms), then `reps` runs timed
-    with CUDA events around the wrapper's call (its host work included);
-    and the last output's checksum."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    runs = [round((e.time_range.end - e.time_range.start) / 1e3, 3)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "lastcols" in e.name]
-    if len(runs) != reps:
-        raise RuntimeError(f"profiler saw {len(runs)} K4 / K5L kernels of "
-                           f"{reps} runs")
-    calls, check = [], None
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        calls.append(round(start.elapsed_time(end), 3))
-        check = checksum(out)
-        del out
-    return runs, calls, check
-
-
-def emit(**line) -> None:
-    line["after"] = smi("clocks.sm,power.draw,temperature.gpu")
-    if "runs_ms" in line:
-        line["median_ms"] = float(np.median(line["runs_ms"]))
-    print(json.dumps(line), flush=True)
-
-
-def import_tree(tree: str):
-    """The tree's package, its kernels built."""
-    sys.path.insert(0, tree)
-    from anyseq_tpu_torch.kernels import _build
-
-    if not _build.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"imported {_build.__file__}, not {tree}'s")
-    return _build.library()
 
 
 def calls():
@@ -211,7 +153,7 @@ def run_tree(tree: str, reps: int) -> None:
     for name, kernel, kept in driven(tree):
         for idx, args in enumerate(kept):
             runs, calls_ms, check = timed_runs(level_fn(lib, kernel, args),
-                                               reps)
+                                               reps, "lastcols", checksum)
             emit(tree=tree, kernel=kernel, shape=f"{name} launch {idx}",
                  **shape_of(args), runs_ms=runs, call_ms=calls_ms,
                  check=check)
@@ -230,7 +172,8 @@ def run_widths(tree: str, reps: int) -> None:
             rule = lastcols.last_plan
             for w in lastcols.AFFINE_WIDTHS if affine else lastcols.WIDTHS:
                 runs, calls_ms, check = timed_runs(
-                    level_fn(lib, kernel, args, width=w), reps)
+                    level_fn(lib, kernel, args, width=w), reps, "lastcols",
+                    checksum)
                 plan = lastcols.last_plan
                 emit(tree=tree, kernel=kernel, shape=f"{name} launch {idx}",
                      **shape_of(args), width=w, rule=rule.width,
@@ -274,30 +217,8 @@ def warp_core_report(tree: str) -> dict:
     return report
 
 
-def child(args) -> list:
-    """One process of a plan; its JSON lines."""
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
-                         capture_output=True, text=True)
-    sys.stdout.write(out.stdout)
-    if out.returncode:
-        sys.stderr.write(out.stderr)
-        raise SystemExit(out.returncode)
-    return [json.loads(x) for x in out.stdout.splitlines()]
-
-
 def key_of(x) -> tuple:
     return (x.get("kernel"), x.get("shape"), x.get("call"))
-
-
-def equal_outputs(lines) -> bool:
-    """Each measurement's outputs equal across its runs."""
-    seen: dict = {}
-    for x in lines:
-        seen.setdefault(key_of(x), set()).add(json.dumps(x["check"]))
-    bad = {k: v for k, v in seen.items() if len(v) > 1}
-    if bad:
-        print(f"k4_ab: outputs differ: {bad}", file=sys.stderr)
-    return not bad
 
 
 def summary(lines, group: str) -> None:
@@ -305,29 +226,21 @@ def summary(lines, group: str) -> None:
     width), and each call's levels summed by medians."""
     print(f"medians ({smi('name,power.limit')}):", flush=True)
     totals: dict = {}
-    for key in dict.fromkeys(key_of(x) for x in lines):
-        got = [x for x in lines if key_of(x) == key]
-        for g in dict.fromkeys(x.get(group) for x in got):
-            sel = [x for x in got if x.get(group) == g]
-            label = " ".join(str(k) for k in key if k is not None)
-            if "walls_s" in sel[0]:
-                print(f"{label} {group}={g}: walls_s "
-                      f"{[x['walls_s'] for x in sel]} peak_gb "
-                      f"{[round(max(x['peak_bytes']) / 1e9, 3) for x in sel]}",
-                      flush=True)
-                continue
-            runs = [r for x in sel for r in x["runs_ms"]]
-            med = float(np.median(runs))
-            call = float(np.median([r for x in sel for r in x["call_ms"]]))
-            extra = "".join(f" {k}={sel[0][k]}" for k in
-                            ("B", "m", "n", "rule", "grid", "scratch_bytes",
-                             "path_steps") if k in sel[0])
-            print(f"{label} {group}={g}{extra}: median_ms={med:.3f} "
-                  f"spread={(max(runs) - min(runs)) / med:.3f} runs={runs} "
-                  f"call_median_ms={call:.3f}", flush=True)
-            call = key[1].rsplit(" launch ", 1)[0]
-            tot = (key[0], call, g)
-            totals[tot] = totals.get(tot, 0.0) + med
+    for key, g, sel in grouped(lines, key_of, lambda x: x.get(group)):
+        label = " ".join(str(k) for k in key if k is not None)
+        if "walls_s" in sel[0]:
+            print(f"{label} {group}={g}: walls_s "
+                  f"{[x['walls_s'] for x in sel]} peak_gb "
+                  f"{[round(max(x['peak_bytes']) / 1e9, 3) for x in sel]}",
+                  flush=True)
+            continue
+        med, text = stats(sel)
+        extra = "".join(f" {k}={sel[0][k]}" for k in
+                        ("B", "m", "n", "rule", "grid", "scratch_bytes",
+                         "path_steps") if k in sel[0])
+        print(f"{label} {group}={g}{extra}: {text}", flush=True)
+        tot = (key[0], key[1].rsplit(" launch ", 1)[0], g)
+        totals[tot] = totals.get(tot, 0.0) + med
     for (kernel, call, g), ms in totals.items():
         print(f"total {kernel} {call} {group}={g}: {ms:.3f} ms", flush=True)
 
@@ -373,19 +286,15 @@ def main() -> int:
                   "the older tree's registers, spills and DPX counts",
                   flush=True)
     if a.sweep:
-        lines = child(["--widths", "--reps", str(a.reps)])
-        if not equal_outputs(lines):
+        lines = child(__file__, ["--widths", "--reps", str(a.reps)])
+        if not equal_outputs(lines, key_of, "k4_ab"):
             return 1
         summary([x for x in lines if "width" in x or "call" in x], "width")
     if a.parent:
-        parent = os.path.abspath(a.parent)
-        lines = []
-        for tree in (parent, ROOT, ROOT, parent):
-            lines += child(["--tree", tree, "--reps", str(a.reps)])
-        if not equal_outputs(lines):
+        lines = in_turns(__file__, ROOT, os.path.abspath(a.parent), a.reps,
+                         key_of, "k4_ab")
+        if lines is None:
             return 1
-        for x in lines:
-            x["which"] = "older" if x["tree"] == parent else "this"
         summary(lines, "which")
     print("k4_ab ok: outputs equal", flush=True)
     return 0

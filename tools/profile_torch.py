@@ -5,7 +5,8 @@ calls goes, on one CUDA card.
     python3 tools/profile_torch.py
 
 For the single-pair calls of ``chip_smoke.py``'s linear and affine paths
-(``align_score`` 1k global and 100k local, ``align`` 100k semiglobal;
+(``align_score`` 1k global and 100k local, ``align_full_tb`` 10k local
+linear and global affine, ``align`` 100k semiglobal;
 seeded related pairs made as it makes them), each batch call of its batch
 path (the same seeded pairs), and its 1 Mbp genome calls
 (``align_score`` global linear and local affine, chained K8 bands;
@@ -103,7 +104,11 @@ def main() -> int:
 
     single = np.random.default_rng(chip_smoke.SEED + 4)
     pairs = {n: chip_smoke.related_pair(single, n) for n in (1000, 100_000)}
+    pairs[10_000] = chip_smoke.related_pair(
+        np.random.default_rng(chip_smoke.SEED + 5), 10_000)
     for name, n, mode, scoring in (("align_score", 1000, "global", sc),
+                                   ("align_full_tb", 10_000, "local", sc),
+                                   ("align_full_tb", 10_000, "global", asc),
                                    ("align_score", 100_000, "local", sc),
                                    ("align_score", 100_000, "local", asc),
                                    ("align", 100_000, "semiglobal", sc),
