@@ -515,11 +515,15 @@ def _stage(flat, idx, width: int) -> np.ndarray:
     return np.lib.stride_tricks.sliding_window_view(data, width)[offs[idx]]
 
 
-def _chunks(queries, subjects, cap: int, bytes_per_cell: int):
+def _chunks(queries, subjects, cap: int, code_bits: int,
+            affine: bool = False):
     """Bucket the pairs by padded shape and stage each chunk in bulk.
     Yields (idx, q, s, ms, ns) per chunk: the pairs' input positions and
     host arrays (q (B, M) / s (B, N) uint8, ms / ns (B,) int32), at most
-    `cap` problems and about CHUNK_BYTES of device memory a chunk."""
+    `cap` problems and about CHUNK_BYTES of device memory a chunk (K7's,
+    for `affine` scoring, with codes of `code_bits` bits a cell)."""
+    from anyseq_tpu_torch.kernels import swarm
+
     if len(queries) != len(subjects):
         raise ValueError("queries and subjects must have equal length")
     if not len(queries):
@@ -532,7 +536,11 @@ def _chunks(queries, subjects, cap: int, bytes_per_cell: int):
     groups = np.split(order, np.cumsum(np.bincount(inverse))[:-1])
     for g in np.argsort(first):            # buckets in order of appearance
         M, N = int(keys[g] >> 32), int(keys[g] & 0xFFFFFFFF)
-        per_problem = (M + N) * 16 + M * N * bytes_per_cell // 8
+        # the sequences, last row and last column, K7's boundary columns
+        # and the codes
+        per_problem = ((M + N) * 5
+                       + swarm.boundary_bytes(M, N, affine, code_bits > 0)
+                       + M * N * code_bits // 8)
         step = max(1, min(cap, CHUNK_BYTES // per_problem))
         for lo in range(0, len(groups[g]), step):
             idx = groups[g][lo: lo + step]
@@ -562,9 +570,12 @@ def align_scores_batch(queries, subjects, mode="global",
     mode = Mode.parse(mode)
     sc = check_scoring(scoring)
     out = np.zeros(len(queries), dtype=np.int64)
-    for idx, *arrays in _chunks(queries, subjects, SCORE_CHUNK, 0):
+    for idx, *arrays in _chunks(queries, subjects, SCORE_CHUNK, 0,
+                                isinstance(sc, AffineScoring)):
         q, s, ms, ns = _to(device, *arrays)
-        res = swarm.score_pairs_swarm(q, s, ms, ns, mode, sc, need_pos=False)
+        # the lengths on the host: K7's strip list is built there
+        res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
+                                      need_pos=False)
         out[idx] = extract_batch(res, ms, ns, mode)[0].cpu().numpy()
     return out
 
@@ -609,7 +620,7 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
     out: list = [None] * len(queries)
     for idx, *arrays in _chunks(queries, subjects, ALIGN_CHUNK, 2):
         q, s, ms, ns = _to(device, *arrays)
-        res = swarm.score_pairs_swarm(q, s, ms, ns, mode, sc,
+        res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
                                       emit_preds=True)
         score, end = extract_batch(res, ms, ns, mode)
         end = end.contiguous()

@@ -59,8 +59,10 @@ SIGNATURES = {
                                _P),
     "anyseq_lastcols_affine_width": (_P, _P, _I, _L),
     "anyseq_lastcols_affine_grid": (_P, _P, _I, _I, _I),
-    "anyseq_swarm": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
+    "anyseq_swarm": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                     _P, _I, _I, _P),
+    "anyseq_swarm_plan": (_P, _P, _I, _I, _I, _I, _I, _L, _P, _P),
     "anyseq_band": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "anyseq_band_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,

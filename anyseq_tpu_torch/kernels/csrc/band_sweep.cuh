@@ -1,7 +1,8 @@
 // The strip core of K8 and K10 (band.cu), of K1, the single-pair score
-// sweep (band.cu anyseq_sweep), and of K4, the level sweep (lastcols.cu,
-// a band a problem): one strip of a band of the linear-gap DP, swept by
-// one warp.
+// sweep (band.cu anyseq_sweep), of K4, the level sweep (lastcols.cu, a
+// band a problem), and of K7, the batch sweep (swarm.cu, a band a
+// problem, with codes where asked): one strip of a band of the linear-gap
+// DP, swept by one warp.
 //
 // The strip's shape is a template parameter (Geom): lane t owns the
 // LANE_COLS consecutive columns [col0 + LANE_COLS * t, +LANE_COLS) of a
@@ -50,6 +51,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -85,12 +87,16 @@ using BandGeom = Geom<32>;
 
 // What a strip sweep writes, a template flag of both cores: each strip's
 // first maximum (bests), the band's bottom row (row_out; affine also
-// rowf_out) and its last column (last_col; affine also last_col_e, and
-// K10's right halo). K8, K10, K1 and K5 write all three; the level sweeps
-// only what they return (K4 the bottom row, K5L the last columns), and
-// their GLOBAL problems need no best.
-constexpr int OUT_BEST = 1, OUT_ROW = 2, OUT_COL = 4;
-constexpr int OUT_ALL = OUT_BEST | OUT_ROW | OUT_COL;
+// rowf_out, OUT_ROW_F) and its last column (last_col, and K10's right
+// halo; affine also last_col_e, OUT_COL_E), and each cell's code
+// (OUT_CODES, below). K8, K10, K1 and K5 write all but the codes; the
+// level sweeps only what they return (K4 the bottom row, K5L the H and E
+// last columns), and their GLOBAL problems need no best; the batch sweep
+// K7 the bottom row, the H last column, the best where LOCAL and the
+// codes where asked.
+constexpr int OUT_BEST = 1, OUT_ROW = 2, OUT_COL = 4, OUT_COL_E = 8,
+              OUT_ROW_F = 16, OUT_CODES = 32;
+constexpr int OUT_ALL = OUT_BEST | OUT_ROW | OUT_COL | OUT_COL_E | OUT_ROW_F;
 
 // A strip shape G and whether a kernel reads the band's boundary from
 // tensors (K8's, K8 affine's) or computes the closed form of a whole
@@ -131,6 +137,8 @@ struct Band {
   int* row_out;            // H[i0+h-1][0..n)
   int* last_col;           // H[i0..i0+h)[n-1]
   int* bests;              // (score, i, j) a strip
+  unsigned* codes;         // OUT_CODES: row i's code words at i * code_words
+  int code_words;
 };
 
 // One lane of the warp waits until *flag >= value, as common.cuh
@@ -214,12 +222,101 @@ __device__ __forceinline__ int max3(int a, int b, int c) {
   return __vimax3_s32(a, b, c);
 }
 
-// A warp's shared memory: its ring, and each lane's row of its best so
-// far, four columns a 16-byte word, lane-minor (conflict-free stores).
+// --- OUT_CODES: each cell's code, in the walks' layout (K3's 2-bit
+// codes, 16 a word, or K6's 4-bit codes, 8 a word, row-major: the code of
+// column j in bits CODE_BITS * (j % per word) of word j / per word of its
+// row). A lane's codes of one row are LANE_COLS x CODE_BITS bits (16 to
+// 64) from bit 0 (its first column) up: one segment of the row, at byte
+// c0 x CODE_BITS / 8. At a step the 32 lanes are on 32 rows, so their
+// stores would land in 32 places. The segments are staged instead: each
+// lane keeps its segments of the rows in flight in a ring in shared
+// memory, one slot a lane and row (its own: no lane reads another's, so
+// no barrier), and at step s, when lane 31 has finished row s - 31 (two
+// rows, s - 31's pair, at two rows a step), every lane stores its segment
+// of that row: the warp writes the row whole. On an H100
+// (tools/k7_probe.py --sweep builds a copy that stores each segment
+// directly; PERF.md) staging won with 16-bit segments (K7 at 8 columns a
+// lane linear, 4 affine: 18-24%), tied with 32-bit ones (8 affine) and
+// lost 4% with 32- and 64-bit ones (16 linear), where storing directly
+// made ptxas spill. Segments of columns past n are not stored; codes of
+// those columns inside a stored segment are 0.
+
+// A lane's segment: 16, 32 or 64 bits.
+template <int BITS>
+using Segment = typename std::conditional<
+    BITS == 16, unsigned short,
+    typename std::conditional<BITS == 32, unsigned,
+                              unsigned long long>::type>::type;
+
+// The ring of a warp's staged segments: a slot a lane for each row in
+// flight (32 rows at one row a step, 64 at two); empty without codes
+// (CODE_BITS 0).
+template <class G, int CODE_BITS>
+struct CodeRing {
+  static constexpr int ROWS = LANES * G::ROWS;
+  Segment<G::LANE_COLS * CODE_BITS> slot[ROWS][LANES];
+};
 template <class G>
+struct CodeRing<G, 0> {};
+
+// One lane's writer of a strip's codes; the ring is the warp's (in shared
+// memory, passed at each use so that it is addressed as such).
+template <class G, int CODE_BITS>
+struct Codes {
+  static constexpr int LANE_BITS = G::LANE_COLS * CODE_BITS;
+  static constexpr int ROWS = LANES * G::ROWS;
+  using Ring = CodeRing<G, CODE_BITS>;
+  using Seg = Segment<LANE_BITS>;
+  unsigned char* seg;   // the lane's segment of row 0, or null: past n
+  int row_bytes;
+  int h;
+  bool hi;              // 64-bit segments: a column below n in the upper word
+
+  __device__ __forceinline__ Codes(const unsigned* codes, int code_words,
+                                   int c0, int n, int h_)
+      : seg(c0 < n ? (unsigned char*)codes + (size_t)c0 * CODE_BITS / 8
+                   : nullptr),
+        row_bytes(code_words * 4),
+        h(h_),
+        hi(c0 + G::LANE_COLS / 2 < n) {}
+
+  __device__ __forceinline__ void store(int r, Seg bits) const {
+    if (!seg) return;
+    unsigned char* p = seg + (size_t)r * row_bytes;
+    if constexpr (LANE_BITS <= 32) {
+      *(Seg*)p = bits;
+    } else {
+      // rows are 4-byte aligned only: two words
+      ((unsigned*)p)[0] = (unsigned)bits;
+      if (hi) ((unsigned*)p)[1] = (unsigned)(bits >> 32);
+    }
+  }
+
+  // row r's segment, at the step the lane sweeps it
+  __device__ __forceinline__ void put(Ring& ring, int r, Seg bits) const {
+    ring.slot[r & (ROWS - 1)][threadIdx.x & 31] = bits;
+  }
+
+  // after the lane's step `step`: the rows that lane 31 finished in it
+  __device__ __forceinline__ void flush(const Ring& ring, int step) const {
+    const int p = step - (LANES - 1);
+    if (p < 0) return;
+#pragma unroll
+    for (int u = 0; u < G::ROWS; ++u) {
+      const int r = G::ROWS * p + u;
+      if (r < h) store(r, ring.slot[r & (ROWS - 1)][threadIdx.x & 31]);
+    }
+  }
+};
+
+// A warp's shared memory: its ring, each lane's row of its best so far,
+// four columns a 16-byte word, lane-minor (conflict-free stores), and
+// (OUT_CODES) its ring of staged code segments.
+template <class G, int CODE_BITS = 0>
 struct WarpShared {
   unsigned long long ring[G::RING];
   int4 held[G::LANE_COLS / 4][LANES];
+  CodeRing<G, CODE_BITS> codes;
 };
 
 // The maximum of N values as a tree of three-way maxima.
@@ -296,10 +393,13 @@ __device__ __forceinline__ void store_best(
 }
 
 // Strip k of the band. LAST: the strip that holds column n - 1; OUT: what
-// it writes.
-template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
-__device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
+// it writes (OUT_CODES: 2-bit codes, CB = 2).
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL,
+          int CB = 0>
+__device__ void sweep_strip(const Band& B, int k, WarpShared<G, CB>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
+  constexpr bool CODES = (OUT & OUT_CODES) != 0;
+  static_assert(!CODES || CB == 2, "2-bit codes");
   const int lane = (int)(threadIdx.x & 31);
   const int c0 = k * G::STRIP + lane * LANE_COLS;
   const int h = B.h, g = B.gap;
@@ -329,6 +429,8 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
                                        : 0;
   int bs = SCORE_MIN, bi = -1;
 
+  using Cw = Codes<G, 2>;
+  const Cw cw(B.codes, B.code_words, c0, B.n, h);
   stage<G, CLOSED>(B, E, sh.ring, 0);
   int in_h = 0, in_q = 0;   // H[i][c0-1] and q[i] from lane t-1
   const int steps = h + LANES - 1;
@@ -347,15 +449,27 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
       int diag = diag_in;
       diag_in = left;
       int hl = left;
+      typename Cw::Seg bits = 0;
 #pragma unroll
       for (int c = 0; c < LANE_COLS; ++c) {
         const int up = H[c];
-        const int x = addmax<false>(up, g,
-                                    diag + (qi == sj[c] ? B.match : B.mismatch));
+        const int dsub = diag + (qi == sj[c] ? B.match : B.mismatch);
+        const int x = addmax<false>(up, g, dsub);
+        const int hleft = hl;
         hl = addmax<LOCAL>(hl, g, x);
+        if constexpr (CODES) {
+          // priority diag > gap_q > gap_s, as selects (a nested
+          // conditional compiles to branches); 0 past column n - 1
+          int code = hl == up + g ? PRED_GAP_S : PRED_NONE;
+          code = hl == hleft + g ? PRED_GAP_Q : code;
+          code = hl == dsub ? PRED_NO_GAP : code;
+          if (LAST) code = c < valid ? code : PRED_NONE;
+          bits |= (typename Cw::Seg)code << (2 * c);
+        }
         diag = up;
         H[c] = hl;
       }
+      if constexpr (CODES) cw.put(sh.codes, i, bits);
       if (LAST) {
         if constexpr ((OUT & OUT_COL) != 0) {
           if (lc >= 0 && lc < LANE_COLS) {
@@ -380,6 +494,7 @@ __device__ void sweep_strip(const Band& B, int k, WarpShared<G>& sh) {
     // the next step's inputs first, so that the best below overlaps them
     in_h = __shfl_up_sync(FULL, H[LANE_COLS - 1], 1);
     in_q = __shfl_up_sync(FULL, qi, 1);
+    if constexpr (CODES) cw.flush(sh.codes, step);
     if constexpr ((OUT & OUT_BEST) != 0) {
       if (row) {
         const int row_max = lane_row_max<LAST>(H, valid);
@@ -560,46 +675,60 @@ struct LevelMeta {
 };
 
 // A problem's strips at `lane_cols` columns a lane (none when empty).
+// (The width rule runs these over every problem of a launch on the host:
+// one strip and one row a step cost no division.)
 inline int level_strips(int h, int n, int lane_cols) {
   const int strip = LANES * lane_cols;
-  return h > 0 && n > 0 ? (n + strip - 1) / strip : 0;
+  return h <= 0 || n <= 0 ? 0 : n <= strip ? 1 : (n + strip - 1) / strip;
 }
 
-// The boundary columns between a launch's strips: (strips_b - 1) x h_b
-// values a problem, of `bytes` each (4 linear; 8 affine, H and E).
-inline long long level_scratch(int lane_cols, const int* hs, const int* ns,
-                               int problems, int bytes) {
-  long long values = 0;
-  for (int b = 0; b < problems; ++b) {
-    const int strips = level_strips(hs[b], ns[b], lane_cols);
-    if (strips > 0) values += (long long)(strips - 1) * hs[b];
-  }
-  return values * bytes;
+// A problem's steps of h rows at w (rows a step).
+inline int level_steps(const Width& w, int h) {
+  return w.rows == 1 ? h : (h + w.rows - 1) / w.rows;
 }
 
-// The warps a level launch at width w runs: about (steps + 31) / lag
-// strips of a problem keep busy at once (grid_of's `busy`), the launch as
-// many as its problems keep busy together, up to the card's resident
-// warps and over equal rounds beyond them; `max_grid` > 0 caps them.
-inline int level_grid(const Width& w, const int* hs, const int* ns,
-                      int problems, int max_grid) {
-  int sms = 0, per_sm = 0;
-  card_of(w.kernel, &sms, &per_sm);
-  const long long resident = (long long)imax(per_sm * sms, 1) * WARPS;
-  long long strips = 0, busy = 0;
-  for (int b = 0; b < problems; ++b) {
-    const int k = level_strips(hs[b], ns[b], w.lane_cols);
-    if (k == 0) continue;
-    const long long steps = (hs[b] + w.rows - 1) / w.rows;
-    strips += k;
-    busy += imin(k, (int)((steps + LANES - 1 + w.lag - 1) / w.lag + 1));
-  }
+// The strips of a problem of h rows and k strips at width w that keep busy
+// at once: about (steps + 31) / lag (grid_of's `busy`).
+inline int level_busy(const Width& w, int h, int k) {
+  if (k == 1) return 1;
+  return imin(k, (level_steps(w, h) + LANES - 1 + w.lag - 1) / w.lag + 1);
+}
+
+// The warps of a level launch of `strips` strips of which `busy` keep
+// busy at once: as many as keep busy, up to `resident` (the card's
+// resident warps) and over equal rounds beyond them; `max_grid` > 0 caps
+// them.
+inline int level_warps(long long strips, long long busy, long long resident,
+                       int max_grid) {
   if (strips == 0) return 0;
   if (max_grid > 0) return (int)std::min<long long>(
       strips, std::min<long long>(max_grid, resident));
   const long long cap = std::min(resident, busy);
   const long long rounds = (busy + cap - 1) / cap;
   return (int)((busy + rounds - 1) / rounds);
+}
+
+// The card's resident warps of a kernel (CTAs of WARPS warps), and its SMs.
+inline long long level_resident(const Width& w, int* sms) {
+  int per_sm = 0;
+  card_of(w.kernel, sms, &per_sm);
+  return (long long)imax(per_sm * *sms, 1) * WARPS;
+}
+
+// The warps a level launch at width w runs (level_warps over its
+// problems); `max_grid` > 0 caps them.
+inline int level_grid(const Width& w, const int* hs, const int* ns,
+                      int problems, int max_grid) {
+  int sms = 0;
+  const long long resident = level_resident(w, &sms);
+  long long strips = 0, busy = 0;
+  for (int b = 0; b < problems; ++b) {
+    const int k = level_strips(hs[b], ns[b], w.lane_cols);
+    if (k == 0) continue;
+    strips += k;
+    busy += level_busy(w, hs[b], k);
+  }
+  return level_warps(strips, busy, resident, max_grid);
 }
 
 // A warp's step at a level width, in cycles: `fixed + per_col x lane_cols`
@@ -610,47 +739,60 @@ struct StepCost {
   int fixed, per_col, issue_fixed, issue_per_col;
 };
 
-// The modelled cycles of a level launch at width w: its steps, the longer
-// of the slowest problem's critical path -- (its steps + 31) + (its strips
-// - 1) x lag -- and the launch's warp-steps spread over its warps, times
-// the step's cycles at that many warps a scheduler.
-inline double level_cycles(const Width& w, const StepCost& cost,
-                           const int* hs, const int* ns, int problems) {
-  int sms = 0, per_sm = 0;
-  card_of(w.kernel, &sms, &per_sm);
-  const int warps = level_grid(w, hs, ns, problems, 0);
-  if (warps == 0) return 0;
-  double path = 0, work = 0;
-  for (int b = 0; b < problems; ++b) {
-    const int k = level_strips(hs[b], ns[b], w.lane_cols);
-    if (k == 0) continue;
-    const double steps = (hs[b] + w.rows - 1) / w.rows + LANES - 1;
-    path = std::max(path, steps + (double)(k - 1) * w.lag);
-    work += k * steps;
-  }
-  // warps a scheduler (an SM has WARPS of them), on average
-  const double sharing =
-      std::max(1.0, (double)warps / (imax(sms, 1) * WARPS));
-  const double step = std::max<double>(
-      cost.fixed + cost.per_col * w.lane_cols,
-      sharing * (cost.issue_fixed + cost.issue_per_col * w.lane_cols));
-  return std::max(path, work / warps) * step;
-}
-
-// The width rule of K4 and K5L, over `widths` widest first with their step
-// costs: the least modelled time among the widths whose boundary scratch
-// fits in `cap` bytes (the caller's share of the card's free memory), the
-// wider on a tie; the widest where none fits (the most scratch any level
-// takes, for the fewest strips).
+// The width rule of K4, K5L and K7, over `widths` (at most LEVEL_WIDTHS,
+// widest first) with their step costs: the least modelled time among the
+// widths whose boundary columns -- (strips_b - 1) x h_b values a problem,
+// of `bytes` each (4 linear; 8 affine, H and E) -- fit in `cap` bytes (the
+// caller's share of the card's free memory), the wider on a tie; the
+// widest where none fits (the most scratch any level takes, for the
+// fewest strips). A width's modelled time is its steps, the longer of the
+// slowest problem's critical path -- (its steps + 31) + (its strips - 1)
+// x lag -- and the launch's warp-steps spread over its warps
+// (level_warps), times the step's cycles at that many warps a scheduler.
+// One pass over the problems gathers every width's sums; `most`, where
+// given, gets the most bytes of boundary columns any of the widths takes.
+constexpr int LEVEL_WIDTHS = 8;
 inline int level_width(const Width* widths, const StepCost* costs, int count,
                        const int* hs, const int* ns, int problems, int bytes,
-                       long long cap) {
+                       long long cap, long long* most = nullptr) {
+  count = imin(count, LEVEL_WIDTHS);
+  long long values[LEVEL_WIDTHS] = {}, strips[LEVEL_WIDTHS] = {},
+            busy[LEVEL_WIDTHS] = {};
+  double path[LEVEL_WIDTHS] = {}, work[LEVEL_WIDTHS] = {};
+  for (int b = 0; b < problems; ++b) {
+    const int h = hs[b];
+    for (int w = 0; w < count; ++w) {
+      const Width& x = widths[w];
+      const int k = level_strips(h, ns[b], x.lane_cols);
+      if (k == 0) break;  // an empty problem, at every width
+      const double steps = level_steps(x, h) + LANES - 1;
+      values[w] += (long long)(k - 1) * h;
+      strips[w] += k;
+      busy[w] += level_busy(x, h, k);
+      path[w] = std::max(path[w], steps + (double)(k - 1) * x.lag);
+      work[w] += k * steps;
+    }
+  }
   int best = 0;
   double best_cycles = -1;
+  if (most) *most = 0;
   for (int w = 0; w < count; ++w) {
-    if (level_scratch(widths[w].lane_cols, hs, ns, problems, bytes) > cap)
-      continue;
-    const double cycles = level_cycles(widths[w], costs[w], hs, ns, problems);
+    if (most) *most = std::max(*most, values[w] * bytes);
+    if (values[w] * bytes > cap) continue;
+    int sms = 0;
+    const long long resident = level_resident(widths[w], &sms);
+    const int warps = level_warps(strips[w], busy[w], resident, 0);
+    double cycles = 0;
+    if (warps > 0) {
+      // warps a scheduler (an SM has WARPS of them), on average
+      const double sharing =
+          std::max(1.0, (double)warps / (imax(sms, 1) * WARPS));
+      const StepCost& c = costs[w];
+      const double step = std::max<double>(
+          c.fixed + c.per_col * widths[w].lane_cols,
+          sharing * (c.issue_fixed + c.issue_per_col * widths[w].lane_cols));
+      cycles = std::max(path[w], work[w] / warps) * step;
+    }
     if (best_cycles < 0 || cycles < best_cycles) {
       best = w;
       best_cycles = cycles;

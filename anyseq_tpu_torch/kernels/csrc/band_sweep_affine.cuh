@@ -1,7 +1,8 @@
 // The strip core of K8 affine and K10 affine (band_affine.cu), of K5, the
-// single-pair affine score sweep (band_affine.cu anyseq_sweep_affine), and
-// of K5L, the affine level sweep (lastcols_affine.cu, a band a problem):
-// one strip of a band of the affine-gap (Gotoh) DP, swept by one warp. The
+// single-pair affine score sweep (band_affine.cu anyseq_sweep_affine), of
+// K5L, the affine level sweep (lastcols_affine.cu, a band a problem), and
+// of K7's affine mode (swarm.cu, with 4-bit codes where asked): one strip
+// of a band of the affine-gap (Gotoh) DP, swept by one warp. The
 // affine twin of band_sweep.cuh, whose lanes, CTAs, strip shapes (Geom),
 // staging rhythm, flags, claim, grid rule and width rule it shares.
 //
@@ -68,14 +69,18 @@ namespace band_affine_core {
 
 using band_core::addmax;
 using band_core::claim;
+using band_core::Codes;
 using band_core::FULL;
 using band_core::Geom;
 using band_core::LANES;
 using band_core::lane_row_max;
 using band_core::OUT_ALL;
 using band_core::OUT_BEST;
+using band_core::OUT_CODES;
 using band_core::OUT_COL;
+using band_core::OUT_COL_E;
 using band_core::OUT_ROW;
+using band_core::OUT_ROW_F;
 using band_core::store_best;
 using band_core::wait_rows;
 using band_core::WARPS;
@@ -124,6 +129,8 @@ struct BandAffine {
   int* last_col;           // H[i0..i0+h)[n-1]
   int* last_col_e;         // E[i0..i0+h)[n-1]
   int* bests;              // (score, i, j) a strip
+  unsigned* codes;         // OUT_CODES: row i's code words at i * code_words
+  int code_words;
 };
 
 // Where one strip reads its left columns and writes its right ones.
@@ -140,13 +147,27 @@ struct EdgesAffine {
 };
 
 // A warp's shared memory: its ring of (H[i][c0-1], Ê of the chain's start,
-// Ê that column 0's H takes, q[i]) a row, and each lane's row of its
-// best so far, as in band_sweep.cuh.
-template <class G>
+// Ê that column 0's H takes, q[i]) a row, each lane's row of its best so
+// far, and (OUT_CODES) its ring of staged code segments, as in
+// band_sweep.cuh.
+template <class G, int CODE_BITS = 0>
 struct WarpSharedAffine {
   int4 ring[G::RING];
   int4 held[G::LANE_COLS / 4][LANES];
+  band_core::CodeRing<G, CODE_BITS> codes;
 };
+
+// The 4-bit code of a cell, PH | PE << 2 | PF << 3 (engine/affine.py
+// pred_codes4): PH by diag > E > F as selects, PRED_NONE for a LOCAL
+// cell clamped at 0; PE where E does not open from H[i][j-1] (Ê[j] !=
+// H[i][j-1], as E = Ê + go + ge), PF where F does not open from H[i-1][j].
+__device__ __forceinline__ int code4(int h, int dsub, int e_hat, int go_ge,
+                                     int f, int h_left, int up) {
+  int ph = h == f ? PRED_GAP_S : PRED_NONE;
+  ph = h == e_hat + go_ge ? PRED_GAP_Q : ph;
+  ph = h == dsub ? PRED_NO_GAP : ph;
+  return ph | (e_hat != h_left) << 2 | (f != up + go_ge) << 3;
+}
 
 // CLOSED (K5, a whole single-pair sweep): the band's top rows and left
 // columns are the sweep's closed-form boundary (engine/affine.py
@@ -239,8 +260,8 @@ __device__ __forceinline__ int load_top(const BandAffine& B, int c0,
                                 : 0;
 }
 
-// A lane's columns of the band's bottom rows H and F.
-template <bool LAST, int LANE_COLS>
+// A lane's columns of the band's bottom rows H and (ROW_F) F.
+template <bool LAST, bool ROW_F, int LANE_COLS>
 __device__ __forceinline__ void store_rows(const BandAffine& B, int c0,
                                            int valid,
                                            const int (&H)[LANE_COLS],
@@ -249,17 +270,21 @@ __device__ __forceinline__ void store_rows(const BandAffine& B, int c0,
   for (int c = 0; c < LANE_COLS; ++c) {
     if (!LAST || c < valid) {
       B.row_out[c0 + c] = H[c];
-      B.rowf_out[c0 + c] = F[c];
+      if (ROW_F) B.rowf_out[c0 + c] = F[c];
     }
   }
 }
 
 // Strip k of the band. LAST: the strip that holds column n - 1; OUT: what
-// it writes (band_sweep.cuh).
-template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
+// it writes (band_sweep.cuh; OUT_CODES: 4-bit codes, CB = 4).
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL,
+          int CB = 0>
 __device__ void sweep_strip(const BandAffine& B, int k,
-                            WarpSharedAffine<G>& sh) {
+                            WarpSharedAffine<G, CB>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
+  constexpr bool CODES = (OUT & OUT_CODES) != 0;
+  static_assert(!CODES || CB == 4, "4-bit codes");
+  using Cw = Codes<G, 4>;
   const int lane = (int)(threadIdx.x & 31);
   const int c0 = k * G::STRIP + lane * LANE_COLS;
   const int h = B.h, ge = B.ge, go_ge = B.go + B.ge;
@@ -274,6 +299,7 @@ __device__ void sweep_strip(const BandAffine& B, int k,
   // H[i-1][c0-1]
   int diag_in = load_top<LAST, CLOSED>(B, c0, valid, sj, H, F);
   int bs = SCORE_MIN, bi = -1;
+  const Cw cw(B.codes, B.code_words, c0, B.n, h);
 
   stage<G, CLOSED>(B, E, sh.ring, 0);
   // from lane t-1: H[i][c0-1], Ê[i][c0] and q[i]
@@ -296,19 +322,27 @@ __device__ void sweep_strip(const BandAffine& B, int k,
       int diag = diag_in;
       diag_in = left;
       int e_out = 0;    // Ê of the column this lane writes out
+      typename Cw::Seg bits = 0;
 #pragma unroll
       for (int c = 0; c < LANE_COLS; ++c) {
         const int up = H[c];
         const int f = addmax<false>(up, go_ge, F[c] + ge);
-        const int t = addmax<LOCAL>(diag, qi == sj[c] ? B.match : B.mismatch,
-                                    f);
+        const int sub = qi == sj[c] ? B.match : B.mismatch;
+        const int t = addmax<LOCAL>(diag, sub, f);
         const int ec = c == 0 ? eh0 : eh;
         if (LAST ? c == lc : c == LANE_COLS - 1) e_out = ec;
         H[c] = addmax<false>(ec, go_ge, t);
+        if constexpr (CODES) {
+          int code = code4(H[c], diag + sub, ec, go_ge, f,
+                           c == 0 ? left : H[c - 1], up);
+          if (LAST) code = c < valid ? code : 0;
+          bits |= (typename Cw::Seg)code << (4 * c);
+        }
         F[c] = f;
         eh = addmax<false>(eh, ge, t);    // the row's one dependent step
         diag = up;
       }
+      if constexpr (CODES) cw.put(sh.codes, i, bits);
       if (LAST) {
         if constexpr ((OUT & OUT_COL) != 0) {
           if (lc >= 0 && lc < LANE_COLS) {
@@ -317,7 +351,8 @@ __device__ void sweep_strip(const BandAffine& B, int k,
             for (int c = 1; c < LANE_COLS; ++c)
               if (c == lc) v = H[c];
             B.last_col[i] = v;
-            B.last_col_e[i] = e_out + go_ge;
+            if constexpr ((OUT & OUT_COL_E) != 0)
+              B.last_col_e[i] = e_out + go_ge;
             if (E.right) {
               E.right[i] = v;
               E.right_e[i] = e_out + go_ge;
@@ -337,6 +372,7 @@ __device__ void sweep_strip(const BandAffine& B, int k,
     in_h = __shfl_up_sync(FULL, H[LANE_COLS - 1], 1);
     in_e = __shfl_up_sync(FULL, eh, 1);
     in_q = __shfl_up_sync(FULL, qi, 1);
+    if constexpr (CODES) cw.flush(sh.codes, step);
     if constexpr ((OUT & OUT_BEST) != 0) {
       if (row) {
         const int row_max = lane_row_max<LAST>(H, valid);
@@ -352,7 +388,8 @@ __device__ void sweep_strip(const BandAffine& B, int k,
     }
   }
 
-  if constexpr ((OUT & OUT_ROW) != 0) store_rows<LAST>(B, c0, valid, H, F);
+  if constexpr ((OUT & OUT_ROW) != 0)
+    store_rows<LAST, (OUT & OUT_ROW_F) != 0>(B, c0, valid, H, F);
   if constexpr ((OUT & OUT_BEST) != 0)
     store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
@@ -363,11 +400,16 @@ __device__ void sweep_strip(const BandAffine& B, int k,
 // column behind the first, so that the two E chains of a lane overlap,
 // and the hand-off (five values), ring reads and loop serve two rows. Odd
 // h: a lane's last step sweeps the one row left.
-template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL,
+          int CB = 0>
 __device__ void sweep_strip2(const BandAffine& B, int k,
-                             WarpSharedAffine<G>& sh) {
+                             WarpSharedAffine<G, CB>& sh) {
   constexpr int LANE_COLS = G::LANE_COLS, CHUNK = G::CHUNK;
   constexpr int STEPS = G::CHUNK_STEPS;
+  constexpr bool CODES = (OUT & OUT_CODES) != 0;
+  static_assert(!CODES || CB == 4, "4-bit codes");
+  using Cw = Codes<G, 4>;
+  using Seg = typename Cw::Seg;
   const int lane = (int)(threadIdx.x & 31);
   const int c0 = k * G::STRIP + lane * LANE_COLS;
   const int h = B.h, ge = B.ge, go_ge = B.go + B.ge;
@@ -382,6 +424,7 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
   // H[i0-1][c0-1]
   int diag_in = load_top<LAST, CLOSED>(B, c0, valid, sj, H, F);
   int bs = SCORE_MIN, bi = -1;
+  const Cw cw(B.codes, B.code_words, c0, B.n, h);
 
   stage<G, CLOSED>(B, E, sh.ring, 0);
   // from lane t-1: H[i0][c0-1], H[i0+1][c0-1], Ê[i0][c0], Ê[i0+1][c0],
@@ -415,25 +458,38 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
       int d0 = diag_in, d1 = left0;
       diag_in = left1;
       int e_out0 = 0, e_out1 = 0;   // Ê of the column this lane writes out
+      Seg bits0 = 0, bits1 = 0;
       if (second) {
 #pragma unroll
         for (int c = 0; c < LANE_COLS; ++c) {
           const int up = H[c];
           const int f0 = addmax<false>(up, go_ge, F[c] + ge);
-          const int t0 = addmax<LOCAL>(d0, q0 == sj[c] ? match : mismatch,
-                                       f0);
+          const int sub0 = q0 == sj[c] ? match : mismatch;
+          const int t0 = addmax<LOCAL>(d0, sub0, f0);
           const int ec0 = c == 0 ? e0_first : e0;
           const int h0 = addmax<false>(ec0, go_ge, t0);
           e0 = addmax<false>(e0, ge, t0);
           const int f1 = addmax<false>(h0, go_ge, f0 + ge);
-          const int t1 = addmax<LOCAL>(d1, q1 == sj[c] ? match : mismatch,
-                                       f1);
+          const int sub1 = q1 == sj[c] ? match : mismatch;
+          const int t1 = addmax<LOCAL>(d1, sub1, f1);
           const int ec1 = c == 0 ? e1_first : e1;
           const int h1 = addmax<false>(ec1, go_ge, t1);
           e1 = addmax<false>(e1, ge, t1);
           if (LAST ? c == lc : c == LANE_COLS - 1) {
             e_out0 = ec0;
             e_out1 = ec1;
+          }
+          if constexpr (CODES) {
+            int code0 = code4(h0, d0 + sub0, ec0, go_ge, f0,
+                              c == 0 ? left0 : R0[c - 1], up);
+            int code1 = code4(h1, d1 + sub1, ec1, go_ge, f1,
+                              c == 0 ? left1 : H[c - 1], h0);
+            if (LAST) {
+              code0 = c < valid ? code0 : 0;
+              code1 = c < valid ? code1 : 0;
+            }
+            bits0 |= (Seg)code0 << (4 * c);
+            bits1 |= (Seg)code1 << (4 * c);
           }
           d0 = up;
           d1 = h0;
@@ -447,15 +503,26 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
         for (int c = 0; c < LANE_COLS; ++c) {
           const int up = H[c];
           const int f0 = addmax<false>(up, go_ge, F[c] + ge);
-          const int t0 = addmax<LOCAL>(d0, q0 == sj[c] ? match : mismatch,
-                                       f0);
+          const int sub0 = q0 == sj[c] ? match : mismatch;
+          const int t0 = addmax<LOCAL>(d0, sub0, f0);
           const int ec0 = c == 0 ? e0_first : e0;
           if (LAST ? c == lc : c == LANE_COLS - 1) e_out0 = ec0;
-          H[c] = R0[c] = addmax<false>(ec0, go_ge, t0);
+          const int h0 = addmax<false>(ec0, go_ge, t0);
+          if constexpr (CODES) {
+            int code0 = code4(h0, d0 + sub0, ec0, go_ge, f0,
+                              c == 0 ? left0 : R0[c - 1], up);
+            if (LAST) code0 = c < valid ? code0 : 0;
+            bits0 |= (Seg)code0 << (4 * c);
+          }
+          H[c] = R0[c] = h0;
           F[c] = f0;
           e0 = addmax<false>(e0, ge, t0);
           d0 = up;
         }
+      }
+      if constexpr (CODES) {
+        cw.put(sh.codes, i0, bits0);
+        if (second) cw.put(sh.codes, i0 + 1, bits1);
       }
       if (LAST) {
         if constexpr ((OUT & OUT_COL) != 0) {
@@ -469,10 +536,12 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
               }
             }
             B.last_col[i0] = v0;
-            B.last_col_e[i0] = e_out0 + go_ge;
+            if constexpr ((OUT & OUT_COL_E) != 0)
+              B.last_col_e[i0] = e_out0 + go_ge;
             if (second) {
               B.last_col[i0 + 1] = v1;
-              B.last_col_e[i0 + 1] = e_out1 + go_ge;
+              if constexpr ((OUT & OUT_COL_E) != 0)
+                B.last_col_e[i0 + 1] = e_out1 + go_ge;
             }
             if (E.right) {
               E.right[i0] = v0;
@@ -503,6 +572,7 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
     in_e0 = __shfl_up_sync(FULL, e0, 1);
     in_e1 = __shfl_up_sync(FULL, e1, 1);
     in_q = __shfl_up_sync(FULL, qq, 1);
+    if constexpr (CODES) cw.flush(sh.codes, step);
     if constexpr ((OUT & OUT_BEST) != 0) {
       if (row) {
         const int m0 = lane_row_max<LAST>(R0, valid);
@@ -524,16 +594,18 @@ __device__ void sweep_strip2(const BandAffine& B, int k,
     }
   }
 
-  if constexpr ((OUT & OUT_ROW) != 0) store_rows<LAST>(B, c0, valid, H, F);
+  if constexpr ((OUT & OUT_ROW) != 0)
+    store_rows<LAST, (OUT & OUT_ROW_F) != 0>(B, c0, valid, H, F);
   if constexpr ((OUT & OUT_BEST) != 0)
     store_best<LAST, LANE_COLS>(sh.held, B, k, c0, valid, bs, bi);
   __syncwarp();   // the ring is free for the warp's next strip
 }
 
 // Strip k at G's rows a step.
-template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL>
+template <bool LOCAL, bool LAST, class G, bool CLOSED, int OUT = OUT_ALL,
+          int CB = 0>
 __device__ __forceinline__ void sweep(const BandAffine& B, int k,
-                                      WarpSharedAffine<G>& sh) {
+                                      WarpSharedAffine<G, CB>& sh) {
   if constexpr (G::ROWS == 2)
     sweep_strip2<LOCAL, LAST, G, CLOSED, OUT>(B, k, sh);
   else

@@ -29,14 +29,15 @@
 // column from go + (j + 1) ge, or (j + 1) ge and NEG under start_gap, the
 // corner 0 or NEG), its boundary H and E columns and flags at its offset,
 // its rows of cols and cols_e -- and writes only the last H and E columns
-// (OUT_COL). The problems keep their own orientation: transposing Gotoh
-// swaps E and F, and start_gap names a horizontal gap run. So the row chain
-// stays the half's height, and the core's two rows a lane a step
-// (sweep_strip2) halve its steps instead: K5's widths, 16 columns a lane
-// one row a step, 8 and 4 two rows a step (two rows won for K5: 37.6
-// against 42.1 ms at the 100k local score, PERF.md; an odd problem's last
-// row is swept alone). Column 0's E floor and the E column out of the lane
-// that holds column n - 1 are K5's. One width a launch, by band_sweep.cuh
+// (OUT_COL, OUT_COL_E). The problems keep their own orientation:
+// transposing Gotoh swaps E and F, and start_gap names a horizontal gap
+// run. So the row chain stays the half's height, and the core's two rows
+// a lane a step (sweep_strip2) halve its steps instead: K5's widths, 16
+// columns a lane one row a step, 8 and 4 two rows a step (two rows won
+// for K5: 37.6 against 42.1 ms at the 100k local score, PERF.md; an odd
+// problem's last row is swept alone). Column 0's E floor and the E
+// column out of the lane that holds column n - 1 are K5's. One width a
+// launch, by band_sweep.cuh
 // level_width with H and E counted in the boundary columns
 // (anyseq_lastcols_affine_width).
 //
@@ -118,12 +119,11 @@ __global__ void __launch_bounds__(LANES * WARPS)
     P.bcols_e = L.bcols_e + L.meta.boff[b];
     P.last_col = L.cols + (size_t)b * L.col_stride;
     P.last_col_e = L.cols_e + (size_t)b * L.col_stride;
+    constexpr int OUT = band_core::OUT_COL | band_core::OUT_COL_E;
     if (kk + 1 < P.strips)
-      band_affine_core::sweep<false, false, G, true, band_core::OUT_COL>(
-          P, kk, sh[warp]);
+      band_affine_core::sweep<false, false, G, true, OUT>(P, kk, sh[warp]);
     else
-      band_affine_core::sweep<false, true, G, true, band_core::OUT_COL>(
-          P, kk, sh[warp]);
+      band_affine_core::sweep<false, true, G, true, OUT>(P, kk, sh[warp]);
   }
 }
 

@@ -13,8 +13,10 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    of their affine modes and K5 (``band_affine.cu``) and of the level
    sweeps K4 and K5L (``lastcols.cu``, ``lastcols_affine.cu``), at every
    strip width, checked to spill nothing, each kernel's SASS searched for
-   the DPX instructions of the chain (VIADDMNMX, VIMNMX3); and the walks
-   K3 and K6 (``walk.cu``, ``walk_affine.cu``), checked to spill nothing.
+   the DPX instructions of the chain (VIADDMNMX, VIMNMX3); the batch
+   sweep K7 (``swarm.cu``) on the same cores, every width, mode and codes
+   instantiation likewise; and the walks K3 and K6 (``walk.cu``,
+   ``walk_affine.cu``), checked to spill nothing.
 2. Each kernel against its plain torch version on the card, on the same
    tensors, bit for bit (integer DP: the tolerance is zero), with both
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K1 and
@@ -35,7 +37,12 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    across their windows: a ~2000 x 3000 full traceback whose walk runs
    a gap of 1,300 columns and one of 300 rows (3 modes), a GLOBAL walk
    along the top halo row for 1,000 columns, and 96 stripes of 1 to 512
-   rows with dead walks.
+   rows with dead walks. K7 on the warp strip cores (``phase2_swarm``, a
+   generator of its own): each width forced on problems of 1, 31, 32 W -
+   1, 32 W and 32 W + 1 columns by 1 to 33 rows, tall and wide ones; 256
+   problems of one to twelve strips; LOCAL ties across lanes and strips;
+   64 problems up to 4,500 x 4,500; 3 modes, with and without codes and
+   positions, affine with mixed start-gap flags, ge = 0 and go = 0.
 3. Five main paths through the public API with ``device="cuda"``, each
    driven with every launch count set to 0 just before it and read just
    after (every kernel of the path must have launched). Linear:
@@ -93,7 +100,11 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    share of its bound. K3 and K6 at the 10k full tracebacks, the ~2000 x
    3000 walks of phase 2, the largest stripe chunk of the 100k ``align``
    and (K3) the largest chunk of ``align_batch``, each with its bound,
-   the bound's kind and the share.
+   the bound's kind and the share. K7 at the batch calls' launches (both
+   buckets of the 10k local score, the largest chunk of the 10k local
+   ``align_batch``, of the affine score and of the 1k semiglobal
+   ``align_batch``, the 4,096 bp launch), each with its width, warps,
+   strips, boundary scratch, bound and share.
 5. A JSON line of the kernels (with each one's bound: the larger of the
    bytes it must move over 3.35 TB/s and its int32 operations over 132
    SMs x 64 int32 lanes x the top SM clock; a walk's also no less than
@@ -191,6 +202,7 @@ BAND_BP = 40_000
 COLL_ROWS = 700                  # phase 2's collective bands
 COLL_BP = 30_000
 CUT_ROWS = 2_048                 # phase 4's cut of a genome band
+SWARM_LARGE_BP = 4_500           # phase 2's largest K7 problems
 # the 4.6 Mbp global score of the seeded pair (SEED), as every run of this
 # script has given it since the genome path was added
 ECOLI_SCORE = 7_807_881
@@ -203,6 +215,8 @@ REDESIGNED = {"wavefront_score": "csrc/band_sweep.cuh",
               "band_collective_affine": "csrc/band_sweep_affine.cuh",
               "lastcols": "csrc/band_sweep.cuh",
               "lastcols_affine": "csrc/band_sweep_affine.cuh",
+              "swarm_score": "csrc/band_sweep.cuh",
+              "swarm_preds": "csrc/band_sweep.cuh",
               "walk": "csrc/walk_core.cuh",
               "walk_affine": "csrc/walk_core.cuh"}
 # a linear construction long enough that its 4-part level has parts
@@ -664,7 +678,7 @@ def level_path_steps(affine: bool, ms, ns, width: int) -> int:
     """The critical path of a K4 (K5L) launch at `width` columns a lane,
     in steps: the slowest problem's (steps + 31) + (strips - 1) x lag, a
     step one row (K5L below 16 columns a lane two), strips lag = 32 /
-    rows + 31 steps apart (csrc/band_sweep.cuh level_cycles)."""
+    rows + 31 steps apart (csrc/band_sweep.cuh level_width)."""
     ms, ns = (torch.as_tensor(x).cpu().to(torch.int64) for x in (ms, ns))
     rows, cols = (ms, ns) if affine else (ns, ms)
     per = 2 if affine and width < 16 else 1
@@ -1138,7 +1152,7 @@ def bound(fn: str, args, sm_clock_mhz: float):
             return t_chain * 1e3, "chain"
     else:
         q, s, ms, ns = args[1:5]
-        ms, ns = ms.to(torch.int64), ns.to(torch.int64)
+        ms, ns = (torch.as_tensor(x).to(torch.int64) for x in (ms, ns))
         cells = int((ms * ns).sum())
         B, sum_m, sum_n = q.shape[0], int(ms.sum()), int(ns.sum())
         nbytes = sum_m + sum_n + 8 * B
@@ -1401,6 +1415,99 @@ def phase2_collective(rng, errors):
                       flush=True)
 
 
+def phase2_swarm(rng, errors, lib=None):
+    """K7 on the warp strip cores (``csrc/swarm.cu``) against its plain
+    version on the card, bit for bit, in 3 modes, each with and without
+    codes and (LOCAL) without positions; linear 2/-1/-1 and affine
+    2/-1/-3/-1 with mixed start-gap flags, and the affine chain's edges
+    (ge = 0, go = 0): at each width forced, problems of n = 1, 31, 32 W - 1,
+    32 W and 32 W + 1 columns by m = 1, 17, 32 and 33 rows, a tall (1500 x
+    40) and a wide (20 x 1500) one; 256 problems of up to 600 x 3000 (one
+    to twelve strips a launch); LOCAL ties across lanes and strips (runs
+    of one symbol, and a scoring whose maxima are single matches); 64
+    problems of up to 4,500 x 4,500. `rng` is the phase's own generator."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.kernels import _build, swarm
+
+    lib = lib or _build.library()
+    dev = torch.device(DEVICE)
+    sc, asc = LinearScoring(), AffineScoring(*AFFINE)
+    edges = (AffineScoring(1, -6, -4, 0), AffineScoring(2, -1, 0, -1))
+    variants = ((True, False), (False, False), (True, True))
+
+    def batch_of(shapes, alphabet=b"ACGT"):
+        """Random problems of the given (m, n) shapes, padded with real
+        symbols, and their lengths."""
+        ms_ = np.array([m for m, _ in shapes])
+        ns_ = np.array([n for _, n in shapes])
+        sym = np.frombuffer(alphabet, np.uint8)
+        q = sym[rng.integers(0, len(sym), (len(shapes), ms_.max()))]
+        s = sym[rng.integers(0, len(sym), (len(shapes), ns_.max()))]
+        return (torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev),
+                torch.from_numpy(ms_).to(dev), torch.from_numpy(ns_).to(dev))
+
+    def held(label, q, s, ms_, ns_, scoring, width=0, modes=tuple(Mode),
+             cases=variants):
+        affine = isinstance(scoring, AffineScoring)
+        sg = (torch.from_numpy(rng.integers(0, 2, q.shape[0]).astype(bool))
+              .to(dev) if affine else None)
+        t0, plain_s = time.perf_counter(), 0.0
+        for mode in modes:
+            for need_pos, preds in cases:
+                if preds and width and width not in swarm.widths_of(affine,
+                                                                   True):
+                    continue
+                args = (q, s, ms_, ns_, mode, scoring, sg, need_pos, preds)
+                got = swarm.launch(lib, *args, width=width)
+                plan = swarm.last_plan
+                t1 = time.perf_counter()
+                want = swarm.plain(*args)
+                plain_s += time.perf_counter() - t1
+                err = max_abs_err(got, want)
+                name = "swarm_preds" if preds else "swarm_score"
+                check(err == 0, f"phase2 K7 {label} {mode.value} {scoring} "
+                                f"need_pos={need_pos} preds={preds} width "
+                                f"{plan.width}: kernel == plain "
+                                f"(max_abs_err {err})")
+                errors[name] = max(errors.get(name, 0), err)
+        print(f"phase2 K7 {label} {scoring} B={q.shape[0]} up to "
+              f"{int(ms_.max())}x{int(ns_.max())} width={width or 'rule'} "
+              f"strips={plan.strips} equal=True "
+              f"({time.perf_counter() - t0 - plain_s:.1f} s, plain "
+              f"{plain_s:.1f} s)", flush=True)
+
+    for scoring in (sc, asc):
+        affine = isinstance(scoring, AffineScoring)
+        for w in swarm.widths_of(affine, False):
+            strip = 32 * w
+            shapes = [(m, n) for m in (1, 17, 32, 33)
+                      for n in (1, 31, strip - 1, strip, strip + 1)]
+            held(f"edges W={w}", *batch_of(shapes + [(1500, 40), (20, 1500)]),
+                 scoring, width=w)
+    for scoring in (sc, asc, *edges):
+        shapes = list(zip(rng.integers(1, 601, 256), rng.integers(1, 3001,
+                                                                  256)))
+        held("mixed strips", *batch_of(shapes), scoring)
+    # LOCAL ties: runs of one symbol (maxima along a row, across lanes and
+    # strips) and single matches among 20 symbols at -100 (maxima 1 all
+    # over the matrix)
+    for scoring in (sc, asc, LinearScoring(1, -100, -100),
+                    AffineScoring(1, -100, -100, -1)):
+        affine = isinstance(scoring, AffineScoring)
+        sparse = scoring.match == 1
+        shapes = [(m, n) for m in (1, 5, 40, 300) for n in (3, 300, 700)]
+        for w in swarm.widths_of(affine, False):
+            q, s, ms_, ns_ = batch_of(
+                shapes, b"ACDEFGHIKLMNPQRSTVWY" if sparse else b"A")
+            held(f"ties W={w}", q, s, ms_, ns_, scoring, width=w,
+                 modes=(Mode.LOCAL,))
+    for scoring in (sc, asc):
+        shapes = list(zip(rng.integers(1000, SWARM_LARGE_BP + 1, 64),
+                          rng.integers(1000, SWARM_LARGE_BP + 1, 64)))
+        held("large", *batch_of(shapes), scoring,
+             cases=((True, False), (True, True)))
+
+
 def phase2_swarm_affine_codes(rng, errors):
     """K7's affine 4-bit codes against the plain version on the card:
     4,096 ragged problems of up to 256 x 256, 3 modes, mixed start-gap
@@ -1419,8 +1526,10 @@ def phase2_swarm_affine_codes(rng, errors):
             f"phase2 K7 swarm_preds affine codes {mode.value} {B} problems "
             f"up to {M}x{N}", lambda: swarm.score_pairs_swarm(*args),
             lambda: swarm.plain(*args))
+        plan = swarm.last_plan
         b_ms, by = bound("swarm", (None, *args), sm_clock_of())
-        print(f"phase2 K7 affine codes {mode.value} bound_ms={b_ms:.4f} "
+        print(f"phase2 K7 affine codes {mode.value} width={plan.width} "
+              f"warps={plan.warps} strips={plan.strips} bound_ms={b_ms:.4f} "
               f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
         errors["swarm_preds"] = max(errors.get("swarm_preds", 0), err)
 
@@ -1431,9 +1540,9 @@ def phase2_swarm_affine_codes(rng, errors):
 # window's loads wait in registers)
 PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
                  "lastcols_affine.cu", "band.cu", "band_affine.cu",
-                 "walk.cu", "walk_affine.cu")
+                 "swarm.cu", "walk.cu", "walk_affine.cu")
 WARP_CORES = ("band.cu", "band_affine.cu", "lastcols.cu",
-              "lastcols_affine.cu")
+              "lastcols_affine.cu", "swarm.cu")
 WALK_CORES = ("walk.cu", "walk_affine.cu")
 
 
@@ -1528,10 +1637,13 @@ def build_report():
                     if name in WARP_CORES:
                         # the chain's max-plus in every kernel; the
                         # three-way max of the best where there is one (the
-                        # level sweeps K4 and K5L have none)
+                        # level sweeps K4 and K5L have none, nor K7 but
+                        # LOCAL: swarm_kernel<AFFINE, LOCAL, G, PREDS>)
+                        best = not (name.startswith("lastcols")
+                                    or name == "swarm.cu"
+                                    and flags[1] == "0")
                         check(counts and counts["VIADDMNMX"] > 0
-                              and (counts["VIMNMX3"] > 0
-                                   or name.startswith("lastcols")),
+                              and (counts["VIMNMX3"] > 0 or not best),
                               f"{name} {kernel}<{flags}>'s SASS holds DPX")
     return report
 
@@ -2092,6 +2204,7 @@ def phase4(kept, timings, errors, sm_clock_mhz):
             geometry(tag, name, call, fn, args, ms)
         if fn.startswith("walk"):
             walk_bound(label, fn, args, ms)
+        return ms
 
     def walk_bound(label, fn, args, ms):
         """A walk launch's time beside its bound, kind and share."""
@@ -2198,13 +2311,32 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     def largest(call, fn):
         return max(kept_of(call, fn), key=lambda args: args[1].shape[0])
 
+    def k7(call, args, report=False):
+        """A K7 launch against its plain version, with its width, warps,
+        strips, boundary scratch, bound and share."""
+        from anyseq_tpu_torch.kernels import swarm
+
+        name = "swarm_preds" if args[9] else "swarm_score"
+        ms = run(name, "K7", call, "swarm", args, report=report)
+        plan = swarm.last_plan
+        b_ms, by = bound("swarm", args, sm_clock_mhz)
+        print(f"phase4 K7 {name} {' '.join(map(str, call))} "
+              f"{shape('swarm', args)} width={plan.width} "
+              f"warps={plan.warps} strips={plan.strips} scratch_bytes="
+              f"{plan.scratch_bytes} kernel_ms={ms:.4f} bound_ms={b_ms:.4f} "
+              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+
     scores_10k = ("align_scores_batch", 256, 10_000, "local",
                   "LinearScoring")
     aln_10k = ("align_batch", 256, 10_000, "local", "LinearScoring")
-    run("swarm_score", "K7", scores_10k, "swarm",
-        largest(scores_10k, "swarm"), report=True)
-    run("swarm_preds", "K7", aln_10k, "swarm", largest(aln_10k, "swarm"),
-        report=True)
+    # the 10k local score's launches (its cold and warm calls each made
+    # them): its (256, 256) and (256, 512) buckets, the larger reported
+    buckets: dict = {}
+    for args in kept_of(scores_10k, "swarm"):
+        buckets.setdefault((args[1].shape, args[2].shape), args)
+    for args in sorted(buckets.values(), key=lambda a: -a[1].shape[0]):
+        k7(scores_10k, args, report=args is largest(scores_10k, "swarm"))
+    k7(aln_10k, largest(aln_10k, "swarm"), report=True)
     run("walk", "K3", aln_10k, "walk", largest(aln_10k, "walk"))
     # phase 2's ~2000 x 3000 walks (compared there), timed alone
     for name, tag, case, args in WALK_SHAPES:
@@ -2215,12 +2347,7 @@ def phase4(kept, timings, errors, sm_clock_mhz):
                  ("align_batch", 256, 1000, "semiglobal", "LinearScoring"),
                  ("align_scores_batch", 4096, 200, "local",
                   "LinearScoring")):
-        args = largest(call, "swarm")
-        run("swarm_preds" if args[9] else "swarm_score", "K7", call,
-            "swarm", args)
-        ms_, by = bound("swarm", args, sm_clock_mhz)
-        print(f"phase4 K7 bound {' '.join(map(str, call))} "
-              f"bound_ms={ms_:.4f} bound_by={by}", flush=True)
+        k7(call, largest(call, "swarm"))
 
 
 def check_level_plans():
@@ -2280,6 +2407,8 @@ def main() -> int:
     phase2_band(rng, errors)
     phase2_collective(rng, errors)
     phase2_swarm_affine_codes(rng, errors)
+    # its own generator, as phase2_walks'
+    phase2_swarm(np.random.default_rng(SEED + 11), errors)
     counts = phase3(rng, kept)
     phase3_batch(rng, kept, counts)
     phase3_small(rng)

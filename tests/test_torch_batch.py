@@ -349,3 +349,23 @@ def test_cpu_batches_launch_no_kernel():
         pt.align_scores_batch(qs, ss, "local", sc, device="cpu")
         pt.align_batch(qs, ss, "local", sc, device="cpu")
     assert set(_build.launches.values()) == {0}
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["linear", "affine"])
+def test_chunks_count_k7_boundary_columns(monkeypatch, affine):
+    """A chunk holds as many pairs as CHUNK_BYTES gives a bucket's pairs
+    with K7's boundary columns for the scoring: a 1,024 x 2,048 pair's
+    strips at K7's narrowest width (linear 256 columns, 4 bytes a value;
+    affine 128 columns, H and E, 8 bytes)."""
+    monkeypatch.setattr(batch, "CHUNK_BYTES", 1 << 20)
+    qs, ss = [b"A" * 1000] * 50, [b"C" * 2000] * 50
+    sizes = [len(c[0]) for c in batch._chunks(qs, ss, batch.SCORE_CHUNK, 0,
+                                              affine)]
+    M, N = 1024, 2048
+    strips = N // (128 if affine else 256)
+    per_problem = (M + N) * 5 + (strips - 1) * M * (8 if affine else 4)
+    step = (1 << 20) // per_problem
+    assert step == (7 if affine else 23)
+    assert sizes == [step] * (50 // step) + ([50 % step] if 50 % step else [])
+    assert swarm.boundary_bytes(M, N, affine, False) == (
+        (strips - 1) * M * (8 if affine else 4))

@@ -355,6 +355,141 @@ def test_swarm_kernel(emu_lib, B, M, N, mode, sc):
             assert torch.equal(got[k], want[k]), (k, need_pos, preds)
 
 
+def _swarm_batch(rng, shapes, alphabet=b"ACGT"):
+    """Random problems of the given (m, n) shapes, padded with real
+    symbols, and their lengths."""
+    ms = torch.tensor([m for m, _ in shapes])
+    ns = torch.tensor([n for _, n in shapes])
+    sym = np.frombuffer(alphabet, np.uint8)
+    q = sym[rng.integers(0, len(sym), (len(shapes), int(ms.max())))]
+    s = sym[rng.integers(0, len(sym), (len(shapes), int(ns.max())))]
+    return torch.from_numpy(q), torch.from_numpy(s), ms, ns
+
+
+def _check_swarm(lib, q, s, ms, ns, sc, sg, width=0, modes=tuple(Mode),
+                 cases=((True, False), (False, False), (True, True))):
+    """K7 at `width` (0: the rule's) against its plain version, in `modes`,
+    score-only, without positions and with codes (at a width that has
+    them)."""
+    affine = isinstance(sc, AffineScoring)
+    for mode in modes:
+        for need_pos, preds in cases:
+            if preds and width and width not in swarm.widths_of(affine,
+                                                               True):
+                continue
+            args = (q, s, ms, ns, mode, sc, sg, need_pos, preds)
+            got = swarm.launch(lib, *args, width=width)
+            want = swarm.plain(*args)
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(got[k], want[k]), (k, mode, need_pos,
+                                                      preds)
+
+
+_SWARM_WIDTHS = ([(SC, w) for w in swarm.WIDTHS]
+                 + [(ASC[0], w) for w in swarm.AFFINE_WIDTHS])
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("sc,width", _SWARM_WIDTHS,
+                         ids=lambda x: str(x) if isinstance(x, int) else
+                         type(x).__name__)
+def test_swarm_kernel_widths(emu_lib, sc, width, mode):
+    """K7 on the warp strip cores forced to each width: problems of n = 1,
+    31, 32 W - 1, 32 W and 32 W + 1 columns (one strip, a strip's edge,
+    two strips) by m = 1, 17 and 33 rows (fewer and more than a warp's
+    lanes), a tall one and a wide one; affine with mixed start-gap
+    flags."""
+    rng = np.random.default_rng(width + 3 * isinstance(sc, AffineScoring))
+    strip = 32 * width
+    shapes = [(m, n) for m in (1, 17, 33)
+              for n in (1, 31, strip - 1, strip, strip + 1)]
+    q, s, ms, ns = _swarm_batch(rng, shapes + [(200, 20), (9, strip * 3)])
+    sg = _flags(rng, len(shapes) + 2) if isinstance(sc, AffineScoring) \
+        else None
+    _check_swarm(emu_lib, q, s, ms, ns, sc, sg, width=width, modes=(mode,))
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("sc", [SC] + ASC + ASC_EDGES[1:], ids=str)
+def test_swarm_kernel_mixed_strips(emu_lib, sc, mode):
+    """One launch of problems of one to five strips (at the rule's width
+    and at the narrowest), multi-strip problems handing their boundary
+    columns on; affine with mixed start-gap flags, ge = 0 and go = 0."""
+    rng = np.random.default_rng(7)
+    shapes = list(zip(rng.integers(1, 81, 24), rng.integers(1, 1300, 24)))
+    q, s, ms, ns = _swarm_batch(rng, shapes)
+    affine = isinstance(sc, AffineScoring)
+    sg = _flags(rng, len(shapes)) if affine else None
+    for width in (0, swarm.widths_of(affine, True)[-1]):
+        _check_swarm(emu_lib, q, s, ms, ns, sc, sg, width=width,
+                     modes=(mode,))
+
+
+@pytest.mark.parametrize("kind", ["runs", "single matches"])
+@pytest.mark.parametrize("sc,width", _SWARM_WIDTHS,
+                         ids=lambda x: str(x) if isinstance(x, int) else
+                         type(x).__name__)
+def test_swarm_kernel_local_ties(emu_lib, sc, width, kind):
+    """Equal LOCAL maxima across lanes, rows and strips: runs of one
+    symbol (the maximum along a whole row, over strips) and, at -100 for
+    a mismatch or a gap, single matches among 20 symbols (maxima of 1 all
+    over the matrix); the first in row-major order wins."""
+    rng = np.random.default_rng(width)
+    shapes = [(m, n) for m in (1, 5, 40) for n in (3, 40, 300, 700)]
+    if kind == "runs":
+        q, s, ms, ns = _swarm_batch(rng, shapes, b"A")
+    else:
+        q, s, ms, ns = _swarm_batch(rng, shapes, b"ACDEFGHIKLMNPQRSTVWY")
+        sc = (AffineScoring(1, -100, -100, -1) if isinstance(
+            sc, AffineScoring) else LinearScoring(1, -100, -100))
+    _check_swarm(emu_lib, q, s, ms, ns, sc, None, width=width,
+                 modes=(Mode.LOCAL,))
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["K3", "K6"])
+def test_swarm_codes_walked_match_xla(emu_lib, affine):
+    """GLOBAL stripes of one to four strips: the emulated K7's codes,
+    walked by the emulated K3 (K6, with mixed start-gap flags), give the
+    strings of the JAX package's ``preds_walk_batch`` (``_affine``, with
+    its scores) on XLA:CPU."""
+    import jax.numpy as jnp
+
+    from anyseq_tpu.core.types import AffineScoring as JaxAffine
+    from anyseq_tpu.core.types import LinearScoring as JaxLinear
+    from anyseq_tpu.engine import batch as jax_batch
+
+    rng = np.random.default_rng(11)
+    shapes = list(zip(rng.integers(1, 120, 10), rng.integers(1, 1000, 10)))
+    q, s, ms, ns = _swarm_batch(rng, shapes)
+    B, M = q.shape
+    N = s.shape[1]
+    sg, eg = _flags(rng, B), _flags(rng, B)
+    sc = ASC[0] if affine else SC
+    res = swarm.launch(emu_lib, q, s, ms, ns, Mode.GLOBAL, sc,
+                       sg if affine else None, True, True, width=8)
+    ends = (torch.stack([ms, ns], 1) - 1).to(torch.int32)
+    jargs = (jnp.asarray(q.numpy(), jnp.int32),
+             jnp.asarray(s.numpy(), jnp.int32), jnp.asarray(ms.numpy()),
+             jnp.asarray(ns.numpy()))
+    if affine:
+        ref_q, ref_s, ref_scores = jax_batch.preds_walk_batch_affine(
+            *jargs, JaxAffine(2, -1, -3, -1), jnp.asarray(sg.numpy()),
+            jnp.asarray(np.zeros(B, bool)))
+        got = walk.launch_affine(emu_lib, res["preds"], q, s, ends,
+                                 Mode.GLOBAL, sg, torch.zeros(B, dtype=bool))
+        np.testing.assert_array_equal(res["best"][:, 0].numpy(),
+                                      np.asarray(ref_scores))
+    else:
+        ref_q, ref_s = jax_batch.preds_walk_batch(*jargs,
+                                                  JaxLinear(2, -1, -1))
+        got = walk.launch(emu_lib, res["preds"], q, s, ends, Mode.GLOBAL)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.asarray(ref_q)[:, :M + N])
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(ref_s)[:, :M + N])
+
+
 def _band_case(q, s, i0, mode, sc, start_gap=False):
     """The arguments of a band of rows [i0, len(q)) whose top row comes
     from the plain sweep of the rows above (the F row too, affine)."""
@@ -1078,3 +1213,89 @@ def test_level_width_rule(emu_card, emu_lib, kernel, parts, m, n, cap_gb,
     else:
         assert width == widths[0]
     assert 1 <= grid <= 132 * 4 * 4
+
+
+@pytest.mark.parametrize("affine,preds,B,m,n,cap_gb,want", [
+    # the batch calls' launches (tools/k7_probe.py --sweep): ~256 bp pairs
+    # in one strip of 8 columns a lane; the (256, 512) bucket's 257 to 270
+    # columns in one strip of 12 (codes: 16); 4,096 bp at 8 (linear)
+    (False, False, 5624, 256, (256, 256), 20, 8),
+    (True, False, 5624, 256, (256, 256), 20, 8),
+    (False, True, 4096, 256, (256, 256), 20, 8),
+    (False, False, 4376, 256, (257, 270), 20, 12),
+    (True, False, 4376, 256, (257, 270), 20, 12),
+    (False, True, 4096, 256, (257, 270), 20, 16),
+    (False, False, 113, 4096, (4000, 4300), 20, 8),
+    # the cap: one-strip problems need no boundary columns; where no width
+    # fits, the widest
+    (False, False, 5624, 256, (256, 256), 0, 8),
+    (False, False, 113, 4096, (4000, 4300), 0, 32),
+    (True, True, 113, 4096, (4000, 4300), 0, 16),
+])
+def test_swarm_width_rule(emu_card, emu_lib, affine, preds, B, m, n, cap_gb,
+                          want):
+    """anyseq_swarm_plan's width rule (band_sweep.cuh level_width on K7's
+    step costs) on an emulated H100 (132 SMs x 4 CTAs): the widths
+    measured fastest at the batch calls' launches, among K7's widths for
+    the scoring and codes whose boundary columns fit the cap (else the
+    widest)."""
+    emu_card(132, 4)
+    ms = np.full(B, m, np.int32)
+    ns = np.random.default_rng(B).integers(n[0], n[1] + 1, B).astype(
+        np.int32)
+    width, _, _ = _swarm_plan(emu_lib, ms, ns, affine, preds, 0,
+                              int(cap_gb * 10**9))
+    assert width == want
+    assert width in swarm.widths_of(affine, preds)
+
+
+def _swarm_plan(lib, ms, ns, affine, preds, width, cap=2**62):
+    """anyseq_swarm_plan of a LOCAL launch: (width, meta, plan)."""
+    B = len(ms)
+    meta = np.full(4 * B + 1, -7, np.int64)
+    plan = np.full(4, -7, np.int64)
+    width = lib.anyseq_swarm_plan(ms.ctypes.data, ns.ctypes.data, B,
+                                  int(affine), 2, int(preds), width, cap,
+                                  meta.ctypes.data, plan.ctypes.data)
+    return width, meta, plan
+
+
+@pytest.mark.parametrize("affine,preds", [(False, False), (False, True),
+                                          (True, False), (True, True)],
+                         ids=["linear", "codes", "affine", "affine-codes"])
+def test_swarm_plan_strip_list(emu_card, emu_lib, affine, preds):
+    """anyseq_swarm_plan's strip list (band_sweep.cuh LevelMeta) at each of
+    K7's widths and at the rule's, held to one written out here: each
+    problem cut by its own length, its boundary columns after the earlier
+    problems'; the strips, boundary values and warps it reports, and the
+    most boundary bytes of any width (swarm.boundary_bytes) where the rule
+    ran."""
+    emu_card(132, 4)
+    rng = np.random.default_rng(31 + 2 * affine + preds)
+    ms = rng.integers(1, 700, 57).astype(np.int32)
+    ns = rng.integers(1, 1500, 57).astype(np.int32)
+    for w in (0, *swarm.widths_of(affine, preds)):
+        width, meta, plan = _swarm_plan(emu_lib, ms, ns, affine, preds, w)
+        assert width == w or (w == 0 and width in swarm.widths_of(affine,
+                                                                  preds))
+        strips = -(-ns.astype(np.int64) // (32 * width))
+        start = np.concatenate([[0], np.cumsum(strips)])
+        values = (strips - 1) * ms
+        want = np.concatenate([ms, ns, start, np.cumsum(values) - values])
+        np.testing.assert_array_equal(meta, want)
+        assert plan[0] == start[-1] and plan[1] == values.sum()
+        assert 1 <= plan[2] <= plan[0]
+        assert plan[3] == (swarm.boundary_bytes(ms, ns, affine, preds)
+                           if w == 0 else 0)
+
+
+def test_swarm_kernel_refuses_other_widths(emu_lib):
+    """A width K7 does not have (with codes no 12 columns a lane, linear no
+    4): the plan refuses it, and the wrapper raises."""
+    q = _seq(np.random.default_rng(0), 10)[None]
+    one = np.ones(1, np.int32) * 10
+    for width, sc, preds in ((12, SC, True), (4, SC, False),
+                             (32, ASC[0], False)):
+        with pytest.raises(ValueError, match="no width"):
+            swarm.launch(emu_lib, q, q, one, one, Mode.LOCAL, sc,
+                         emit_preds=preds, width=width)

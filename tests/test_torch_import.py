@@ -187,15 +187,17 @@ def test_every_kernel_has_a_launch_count():
         "band", "band_affine", "band_collective", "band_collective_affine"}
     # one launching entry a source and K1's and K5's on the warp strip
     # cores, the peer-access switch of the collective, the grid queries of
-    # K8/K10 and of their affine modes, the affine strip width, and the
-    # width and grid queries of K1, K5, K4 and K5L (which launch nothing)
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 14 == 23
+    # K8/K10 and of their affine modes, the affine strip width, the width
+    # and grid queries of K1, K5, K4 and K5L, and K7's plan (which launch
+    # nothing)
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 15 == 24
     assert {"anyseq_band_grid", "anyseq_band_affine_grid",
             "anyseq_band_affine_strip", "anyseq_sweep", "anyseq_sweep_affine",
             "anyseq_sweep_width", "anyseq_sweep_affine_width",
             "anyseq_sweep_grid", "anyseq_sweep_affine_grid",
             "anyseq_lastcols_width", "anyseq_lastcols_affine_width",
-            "anyseq_lastcols_grid", "anyseq_lastcols_affine_grid"} <= set(
+            "anyseq_lastcols_grid", "anyseq_lastcols_affine_grid",
+            "anyseq_swarm_plan"} <= set(
                 _build.SIGNATURES)
 
 

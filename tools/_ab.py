@@ -1,8 +1,8 @@
-"""What the A/B tools (``tools/k1_ab.py``, ``k4_ab.py``, ``walk_ab.py``)
-share: the card's state, one JSON line a measurement, a tree's package
-imported with its kernels built, each run a process of its own, two trees
-run in turns with their outputs held equal, and the median and spread of
-a group of runs.
+"""What the A/B tools (``tools/k1_ab.py``, ``k4_ab.py``, ``walk_ab.py``,
+``k7_probe.py``) share: the card's state, one JSON line a measurement, a
+tree's package imported with its kernels built, each run a process of its
+own, two trees run in turns with their outputs held equal, and the median
+and spread of a group of runs.
 
 A tool imports it as ``_ab``: a script's own directory is first on
 ``sys.path``.
@@ -83,6 +83,24 @@ def timed_runs(fn, reps: int, kernel: str, checksum, digits: int = 3):
     return runs, calls, check
 
 
+def host_runs(fn, reps: int, digits: int = 3) -> list:
+    """`reps` runs of fn() timed on the host's clock (ms) from the call to
+    its return, the card idle before each: the wrapper's host work, with
+    its launches but not what they run."""
+    import time
+
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(round((time.perf_counter() - t0) * 1e3, digits))
+    torch.cuda.synchronize()
+    return out
+
+
 def child(script: str, args) -> list:
     """Run `script` with `args` in a process of its own; its JSON lines
     (its output is passed on; a failure ends this process too)."""
@@ -133,7 +151,8 @@ def grouped(lines, key_of, group_of):
 def stats(sel, digits: int = 3):
     """(median, text) of a group's device runs: the median, the spread
     (max - min over the median), the runs and, where the lines keep them,
-    the median of the calls timed with CUDA events."""
+    the median of the calls timed with CUDA events and of their host work
+    (``host_runs``)."""
     runs = [r for x in sel for r in x["runs_ms"]]
     med = float(np.median(runs))
     text = (f"median_ms={med:.{digits}f} "
@@ -141,4 +160,7 @@ def stats(sel, digits: int = 3):
     if "call_ms" in sel[0]:
         call = float(np.median([r for x in sel for r in x["call_ms"]]))
         text += f" call_median_ms={call:.{digits}f}"
+    if "host_ms" in sel[0]:
+        host = float(np.median([r for x in sel for r in x["host_ms"]]))
+        text += f" host_median_ms={host:.{digits}f}"
     return med, text
