@@ -47,7 +47,6 @@ from anyseq_tpu_torch.core.types import (
 from anyseq_tpu_torch.dist.mesh import Mesh, lex_best_merge
 from anyseq_tpu_torch.engine import affine, linmem
 from anyseq_tpu_torch.kernels import _build, band
-from anyseq_tpu_torch.kernels._sweep import STRIP
 
 _STREAMS: dict = {}
 _PEERS: set = set()
@@ -117,7 +116,7 @@ def _as_seq(x, device) -> torch.Tensor:
 def geometry(m: int, n: int, K: int, band_rows: int | None = None):
     """(Nl, active ranks, band_rows, bands) of an m x n sweep over K
     ranks."""
-    Nl = -(-(-(-n // K)) // STRIP) * STRIP
+    Nl = -(-(-(-n // K)) // band.STRIP) * band.STRIP
     if band_rows is None:
         band_rows = m if m <= band.M_MAX else band.M_BAND
     band_rows = max(1, min(band_rows, m))

@@ -20,19 +20,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("wavefront.cu", "walk.cu", "lastcols.cu", "wavefront_affine.cu",
-           "walk_affine.cu", "lastcols_affine.cu", "swarm.cu", "band.cu",
-           "band_affine.cu")
-HEADERS = ("common.cuh", "sweep.cuh", "sweep_affine.cuh", "band_sweep.cuh",
-           "band_sweep_affine.cuh", "walk_core.cuh")
+SOURCES = ("walk.cu", "lastcols.cu", "walk_affine.cu", "lastcols_affine.cu",
+           "swarm.cu", "band.cu", "band_affine.cu")
+HEADERS = ("common.cuh", "band_sweep.cuh", "band_sweep_affine.cuh",
+           "walk_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches made by the wrappers, by kernel: K1, K2, K3, K4, K5,
 # K5p, K5L, K6, K7 score-only, K7 with codes (2-bit linear or 4-bit
 # affine), K8, K8 affine, K10 and K10 affine (one launch a rank a band).
-# K1 and K5 run K8's and K8 affine's kernels (the warp strip cores) at
-# their own widths, and count as K1 and K5.
+# K1 and K2 (K5 and K5p) run K8's (K8 affine's) entry and warp strip
+# core at their own widths, and count as themselves.
 launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
             "lastcols": 0, "wavefront_affine_score": 0,
             "wavefront_affine_preds": 0, "lastcols_affine": 0,
@@ -42,16 +41,12 @@ launches = {"wavefront_score": 0, "wavefront_preds": 0, "walk": 0,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "anyseq_wavefront": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _P),
     "anyseq_walk": (_P, _L, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P,
                     _P),
     "anyseq_lastcols": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P, _P, _I, _P),
     "anyseq_lastcols_width": (_P, _P, _I, _L),
     "anyseq_lastcols_grid": (_P, _P, _I, _I, _I),
-    "anyseq_wavefront_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                                _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "anyseq_walk_affine": (_P, _L, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P,
                            _P, _I, _P, _P),
     "anyseq_lastcols_affine": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
@@ -72,14 +67,14 @@ SIGNATURES = {
     "anyseq_band_affine_grid": (_I, _I, _I, _I, _I),
     "anyseq_band_affine_strip": (),
     "anyseq_sweep": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                     _P, _P, _P, _P, _P),
-    "anyseq_sweep_width": (_I, _I, _I),
-    "anyseq_sweep_grid": (_I, _I, _I, _I),
+                     _P, _P, _P, _P, _P, _I, _P),
+    "anyseq_sweep_width": (_I, _I, _I, _I),
+    "anyseq_sweep_grid": (_I, _I, _I, _I, _I),
     "anyseq_sweep_affine": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                             _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P),
-    "anyseq_sweep_affine_width": (_I, _I, _I),
-    "anyseq_sweep_affine_grid": (_I, _I, _I, _I),
+                            _P, _P, _I, _P),
+    "anyseq_sweep_affine_width": (_I, _I, _I, _I),
+    "anyseq_sweep_affine_grid": (_I, _I, _I, _I, _I),
     "anyseq_enable_peer": (_I, _I),
 }
 

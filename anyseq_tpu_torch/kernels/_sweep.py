@@ -1,14 +1,12 @@
-"""What the sweep wrappers share: the kernels' mode codes, the strip
-widths of the single-pair sweeps (the CTA strips of K2/K5p,
-the warp strips of K1/K5 and K8), their input check and the reduction of
-their per-strip bests."""
+"""What the sweep wrappers share: the kernels' mode codes, the lanes of a
+warp strip (K1/K2, K5/K5p, K4/K5L, K7, K8), the strips of a width, their
+input check and the reduction of their per-strip bests."""
 from __future__ import annotations
 
 import torch
 
 from anyseq_tpu_torch.core.types import Mode
 
-STRIP = 1024   # columns per CTA strip (csrc/sweep.cuh), and per K8 strip
 LANES = 32     # a warp strip's lanes (csrc/band_sweep.cuh)
 MODE_CODE = {Mode.GLOBAL: 0, Mode.SEMIGLOBAL: 1, Mode.LOCAL: 2}
 _INT_MAX = 2**31 - 1

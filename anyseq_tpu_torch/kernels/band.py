@@ -47,11 +47,13 @@ AFFINE_LANE_COLS = 16
 STRIP = LANES * LANE_COLS
 AFFINE_STRIP = LANES * AFFINE_LANE_COLS
 # The columns a lane that K1 and K5, the single-pair score sweeps on the
-# same cores, may sweep at (csrc/band.cu, csrc/band_affine.cu with_width),
-# widest first; the width rule (anyseq_sweep_width, ..._affine_width)
-# picks one per launch.
+# same cores, and K2 and K5p, the same sweeps with codes, may sweep at
+# (csrc/band.cu, csrc/band_affine.cu with_width), widest first; the width
+# rule (anyseq_sweep_width, ..._affine_width) picks one per launch.
 WIDTHS = (32, 16, 8)
 AFFINE_WIDTHS = (16, 8, 4)
+CODE_WIDTHS = (16, 8)
+AFFINE_CODE_WIDTHS = (16, 8, 4)
 
 # Tallest query swept in one piece (the JAX package's M_MAX, a TPU memory
 # cap: on the H100 one K1 sweep still fits at 1 Mbp and is faster than

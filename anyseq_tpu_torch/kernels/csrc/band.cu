@@ -3,14 +3,14 @@
 // length in bounded memory, and of the resumable scorer. K10: the same
 // band over one rank's stripe of columns, handing its boundary columns to
 // and from the neighbouring ranks as it runs -- the collective sweep that
-// scores one pair over several devices (dist/collective.py). K1
-// (anyseq_sweep): a whole single-pair score sweep, up to
-// kernels/band.py M_MAX rows, as one band of this kernel from the
-// sweep's closed-form boundary, at a strip width the width rule
-// (band_sweep.cuh width_of) chooses from the card and the pair -- the
-// port of the JAX package's _score_padded (band.py:1336) score only,
-// which the first design swept on sweep.cuh's CTA strips (wavefront.cu
-// keeps them for K2, the sweep with codes).
+// scores one pair over several devices (dist/collective.py). K1 and K2
+// (anyseq_sweep): a whole single-pair sweep, up to kernels/band.py M_MAX
+// rows score only, as one band of this kernel from the sweep's
+// closed-form boundary, at a strip width the width rule (band_sweep.cuh
+// width_of) chooses from the card and the pair; K2 also writes each
+// cell's 2-bit code (the cores' OUT_CODES mode) -- the port of the JAX
+// package's _score_padded (band.py:1336), score only and with
+// emit_preds, which the first design swept on 1024-column CTA strips.
 //
 // Replaces the JAX package's Pallas kernel anyseq_tpu/kernels/band.py
 // _score_band_padded (_make_kernel, band.py:1443): K8 its boundary mode as
@@ -40,9 +40,9 @@
 // which is why a chain of bands keeps a genome-length query in bounded
 // memory where one K1 sweep needs (strips - 1) * m.
 //
-// What the first design (K1's strip sweep, sweep.cuh: 64 threads x 16
-// columns a CTA, a CTA barrier and a shared-memory hand-off a step,
-// publish every 64 rows, every resident CTA launched) lost, on an H100
+// What the first design (a CTA strip core: 64 threads x 16 columns a
+// CTA, a CTA barrier and a shared-memory hand-off a step, publish every
+// 64 rows, every resident CTA launched) lost, on an H100
 // 80GB HBM3 at 700 W (PERF.md): a 262,144 x 4.6 M band took
 // 1402-3737 ms at the full grid (~14 CTAs an SM, every thread of a
 // waiting CTA spinning), 1184.6 ms at 462 CTAs, 19.8-36.5% of its
@@ -100,74 +100,103 @@ using band_core::WARPS;
 template <int LANE_COLS>
 using SweepGeom = band_core::Geom<LANE_COLS>;
 
-template <bool LOCAL, class G, bool CLOSED>
+// CB: the bits of a cell's code (2: K2, OUT_CODES), or 0 (K1, K8, K10).
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
 __global__ void __launch_bounds__(LANES * WARPS) band_kernel(Band B) {
-  __shared__ band_core::WarpShared<G> sh[WARPS];
+  constexpr int OUT = band_core::OUT_ALL | (CB ? band_core::OUT_CODES : 0);
+  __shared__ band_core::WarpShared<G, CB> sh[WARPS];
   const int warp = (int)threadIdx.x / LANES;
   if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
     const int k = band_core::claim(B.ticket);
     if (k >= B.strips) return;
     if (k + 1 < B.strips)
-      band_core::sweep_strip<LOCAL, false, G, CLOSED>(B, k, sh[warp]);
+      band_core::sweep_strip<LOCAL, false, G, CLOSED, OUT, CB>(B, k, sh[warp]);
     else
-      band_core::sweep_strip<LOCAL, true, G, CLOSED>(B, k, sh[warp]);
+      band_core::sweep_strip<LOCAL, true, G, CLOSED, OUT, CB>(B, k, sh[warp]);
   }
 }
 
 template <class G>
 int strips_of(int n) { return (n + G::STRIP - 1) / G::STRIP; }
 
-// CLOSED: K1 (the closed-form boundary of a whole sweep); else K8 / K10.
-template <bool LOCAL, class G, bool CLOSED>
+// CLOSED: K1 / K2 (the closed-form boundary of a whole sweep); else K8 /
+// K10.
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
 int grid_of(int h, int n, int share, int max_grid) {
-  return band_core::grid_of((const void*)band_kernel<LOCAL, G, CLOSED>, h,
-                            strips_of<G>(n), share, max_grid, G::LAG);
+  return band_core::grid_of((const void*)band_kernel<LOCAL, G, CLOSED, CB>,
+                            h, strips_of<G>(n), share, max_grid, G::LAG);
 }
 
-template <bool LOCAL, class G, bool CLOSED>
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
 int launch(Band B, int share, int max_grid, void* stream) {
   B.strips = strips_of<G>(B.n);
-  B.workers = grid_of<LOCAL, G, CLOSED>(B.h, B.n, share, max_grid);
-  auto kernel = band_kernel<LOCAL, G, CLOSED>;
+  B.workers = grid_of<LOCAL, G, CLOSED, CB>(B.h, B.n, share, max_grid);
+  auto kernel = band_kernel<LOCAL, G, CLOSED, CB>;
   ANYSEQ_LAUNCH(kernel, (B.workers + WARPS - 1) / WARPS, LANES * WARPS,
                 stream, B);
   return (int)cudaGetLastError();
 }
 
-// f(Form<...>{}) for one of K1's widths (= kernels/band.py WIDTHS), or
-// `bad` for another: 32 columns a lane is K8's own kernel on the sweep's
-// boundary tensors (its closed form ran 10% slower there, PERF.md), 16 and
-// 8 the closed form, which spares a short sweep the boundary's six tensor
-// launches. Four columns a lane ran slower than eight at every shape of
-// the main path (PERF.md), so K1 does not have it.
-template <class F>
+// f(Form<...>{}) for one of K1's widths (= kernels/band.py WIDTHS) or,
+// with codes, of K2's (CODE_WIDTHS), or `bad` for another. K1: 32
+// columns a lane is K8's own kernel on the sweep's boundary tensors (its
+// closed form ran 10% slower there, PERF.md), 16 and 8 the closed form,
+// which spares a short sweep the boundary's six tensor launches; four
+// columns a lane ran slower than eight at every shape of the main path
+// (PERF.md), so K1 does not have it. K2: 16 and 8 columns a lane, the
+// closed form with 2-bit codes (32- and 16-bit segments, K7's), one row a
+// step (two, the affine core's form, ran 2-3% slower at 8 columns at
+// 10k, 2,048 and 256 rows, PERF.md); at 32 a warp's code ring and best
+// rows (8 + 4 KB) would take a CTA past the 48 KB of static shared
+// memory.
+template <bool CODES, class F>
 int with_width(int lane_cols, int bad, F f) {
+  constexpr int CB = CODES ? 2 : 0;
   switch (lane_cols) {
-    case 32: return f(Form<BandGeom, false>{});
-    case 16: return f(Form<SweepGeom<16>, true>{});
-    case 8: return f(Form<SweepGeom<8>, true>{});
-    default: return bad;
+    case 32:
+      if constexpr (!CODES) return f(Form<BandGeom, false>{});
+      break;
+    case 16: return f(Form<SweepGeom<16>, true, CB>{});
+    case 8: return f(Form<SweepGeom<8>, true, CB>{});
   }
+  return bad;
 }
 
-template <bool LOCAL, class Fm>
-band_core::Width width(Fm) {
-  using G = typename Fm::G;
-  return {G::LANE_COLS, (const void*)band_kernel<LOCAL, G, Fm::CLOSED>,
+template <bool LOCAL, class K>
+band_core::Width width(K) {
+  using G = typename K::G;
+  return {G::LANE_COLS, (const void*)band_kernel<LOCAL, G, K::CLOSED, K::CB>,
           G::ROWS, G::LAG};
 }
 
-// K1's width rule (band_sweep.cuh width_of) over its widths.
-template <bool LOCAL>
+// A step of K2 (cycles, band_sweep.cuh StepCost), fitted to its device
+// times at 16 and 8 columns a lane at 10k, 2,048 and 256 rows on an
+// H100 (tools/k1_ab.py --preds --sweep, PERF.md): a warp alone on its
+// scheduler ~450 + 46 a column; each warp that shares it, K7's codes
+// costs (swarm.cu STEP_CODES).
+constexpr band_core::StepCost STEP_CODES{450, 46, 55, 40};
+
+// K1's width rule (band_sweep.cuh width_of) over its widths; K2's, the
+// level rule (band_sweep.cuh level_width) over its widths on its own step
+// costs, the pair one problem with no cap on its boundary columns (width_of
+// took 16 columns at 2,000 x 3,000 affine, where 8 ran 31% faster,
+// PERF.md).
+template <bool LOCAL, bool CODES>
 int sweep_width(int h, int n) {
   band_core::Width widths[3];
-  for (int w = 0; w < 3; ++w)
-    with_width(32 >> w, 0, [&](auto fm) {
-      widths[w] = width<LOCAL>(fm);
+  band_core::StepCost costs[3];
+  int count = 0;
+  for (const int w : {32, 16, 8})
+    with_width<CODES>(w, 0, [&](auto kind) {
+      costs[count] = STEP_CODES;
+      widths[count++] = width<LOCAL>(kind);
       return 0;
     });
-  return band_core::width_of(widths, 3, h, n);
+  if (CODES)
+    return band_core::level_width(widths, costs, count, &h, &n, 1, 4,
+                                  LLONG_MAX);
+  return band_core::width_of(widths, count, h, n);
 }
 
 }  // namespace
@@ -212,56 +241,74 @@ extern "C" int anyseq_band_grid(int h, int n, int mode, int share,
              : grid_of<false, BandGeom, false>(h, n, share, max_grid);
 }
 
-// K1: the single-pair score sweep of an h-row query against an n-column
-// subject in `mode`, run as one band from the sweep's closed-form boundary
-// (H[-1][j] = (j + 1) * gap, H[i][-1] = (i + 1) * gap for GLOBAL, 0
-// else) at `lane_cols` columns a lane, one of K1's widths
-// (anyseq_sweep_width's choice, or one a caller forces): at 32, K8's
-// kernel reads that boundary from row_in (n ints) and col_in (h ints);
-// narrower, the kernel computes it (row_in, col_in unread). Scratch and
-// outputs as anyseq_band's, with strips of 32 * lane_cols columns;
-// `max_grid` > 0 caps the warps. Another width, or no boundary tensors
-// at 32: cudaErrorInvalidValue.
+// K1 and K2: the single-pair sweep of an h-row query against an n-column
+// subject in `mode`, run as one band from the sweep's closed-form
+// boundary (H[-1][j] = (j + 1) * gap, H[i][-1] = (i + 1) * gap for
+// GLOBAL, 0 else) at `lane_cols` columns a lane, one of K1's widths or,
+// with codes, of K2's (anyseq_sweep_width's choice, or one a caller
+// forces): at 32, K8's kernel reads that boundary from row_in (n ints)
+// and col_in (h ints); narrower, the kernel computes it (row_in, col_in
+// unread). Scratch and outputs as anyseq_band's, with strips of 32 *
+// lane_cols columns; `max_grid` > 0 caps the warps. `codes` null: K1,
+// score only; else K2 also writes cell (i, j)'s 2-bit code (the plain
+// version's, linmem.pack_codes) in bits 2 * (j % 16) of word i *
+// code_words + j / 16 (code_words >= ceil(n / 16)), a lane's codes of a
+// row as one segment: a segment of columns past n - 1 is not stored, so
+// the caller zeroes the row's last word where no lane's segment reaches
+// its end. Another width, or no boundary tensors at 32:
+// cudaErrorInvalidValue.
 extern "C" int anyseq_sweep(const void* q, int h, const void* s, int n,
                             int match, int mismatch, int gap, int mode,
                             int lane_cols, const void* row_in,
                             const void* col_in, int max_grid, void* ticket,
                             void* bcols, void* flags, void* row_out,
-                            void* last_col, void* bests, void* stream) {
+                            void* last_col, void* bests, void* codes,
+                            int code_words, void* stream) {
   const Band B{(const uint8_t*)q, h,        (const uint8_t*)s, n,
                match,             mismatch, gap,
                (const int*)row_in, 0,       (const int*)col_in,
                mode == MODE_GLOBAL ? gap : 0, Halo{}, 0,
                0,                 (int*)ticket, (int*)bcols,
                (int*)flags,       (int*)row_out, (int*)last_col,
-               (int*)bests};
+               (int*)bests,       (unsigned*)codes, code_words};
   const int bad = (int)cudaErrorInvalidValue;
-  return with_width(lane_cols, bad, [&](auto fm) {
-    using Fm = decltype(fm);
-    using G = typename Fm::G;
-    if (!Fm::CLOSED && !(row_in && col_in)) return bad;
+  auto go = [&](auto kind) {
+    using K = decltype(kind);
+    using G = typename K::G;
+    if (!K::CLOSED && !(row_in && col_in)) return bad;
     return mode == MODE_LOCAL
-               ? launch<true, G, Fm::CLOSED>(B, 1, max_grid, stream)
-               : launch<false, G, Fm::CLOSED>(B, 1, max_grid, stream);
-  });
+               ? launch<true, G, K::CLOSED, K::CB>(B, 1, max_grid, stream)
+               : launch<false, G, K::CLOSED, K::CB>(B, 1, max_grid, stream);
+  };
+  return codes ? with_width<true>(lane_cols, bad, go)
+               : with_width<false>(lane_cols, bad, go);
 }
 
-// The columns a lane K1 sweeps an h x n pair at in `mode` on the current
-// card (band_sweep.cuh width_of).
-extern "C" int anyseq_sweep_width(int h, int n, int mode) {
-  return mode == MODE_LOCAL ? sweep_width<true>(h, n)
-                            : sweep_width<false>(h, n);
+// The columns a lane K1 (`codes` 0) or K2 sweeps an h x n pair at in
+// `mode` on the current card (band_sweep.cuh width_of).
+extern "C" int anyseq_sweep_width(int h, int n, int mode, int codes) {
+  const bool local = mode == MODE_LOCAL;
+  if (codes)
+    return local ? sweep_width<true, true>(h, n)
+                 : sweep_width<false, true>(h, n);
+  return local ? sweep_width<true, false>(h, n)
+               : sweep_width<false, false>(h, n);
 }
 
 // The warps anyseq_sweep launches for an h x n pair in `mode` at
-// `lane_cols` columns a lane (-1 for a width K1 does not have).
-extern "C" int anyseq_sweep_grid(int h, int n, int mode, int lane_cols) {
-  return with_width(lane_cols, -1, [&](auto fm) {
-    using Fm = decltype(fm);
-    using G = typename Fm::G;
-    return mode == MODE_LOCAL ? grid_of<true, G, Fm::CLOSED>(h, n, 1, 0)
-                              : grid_of<false, G, Fm::CLOSED>(h, n, 1, 0);
-  });
+// `lane_cols` columns a lane, with codes or not (-1 for a width K1 or
+// K2 does not have).
+extern "C" int anyseq_sweep_grid(int h, int n, int mode, int lane_cols,
+                                 int codes) {
+  auto go = [&](auto kind) {
+    using K = decltype(kind);
+    using G = typename K::G;
+    return mode == MODE_LOCAL
+               ? grid_of<true, G, K::CLOSED, K::CB>(h, n, 1, 0)
+               : grid_of<false, G, K::CLOSED, K::CB>(h, n, 1, 0);
+  };
+  return codes ? with_width<true>(lane_cols, -1, go)
+               : with_width<false>(lane_cols, -1, go);
 }
 
 #ifdef ANYSEQ_HOST_EMU

@@ -3,12 +3,13 @@
 // scores genome-length queries and Myers-Miller halves of any height in
 // bounded memory. K10 affine: the same band over one rank's stripe of
 // columns, with the H and E boundary columns handed across ranks as in
-// band.cu. K5 (anyseq_sweep_affine): a whole single-pair affine score
-// sweep (with the Myers-Miller start_gap boundary and the E last column)
-// as one band of this kernel from the sweep's closed-form boundary, at
-// the width K1's rule chooses -- the port of _score_padded's affine score
-// sweep, which the first design swept on sweep_affine.cuh's CTA strips
-// (wavefront_affine.cu keeps them for K5p, the sweep with codes).
+// band.cu. K5 and K5p (anyseq_sweep_affine): a whole single-pair affine
+// sweep (K5 score only, with the Myers-Miller start_gap boundary; both
+// with the E last column) as one band of this kernel from the sweep's
+// closed-form boundary, at the width K1's rule chooses; K5p also writes
+// each cell's 4-bit code (the cores' OUT_CODES mode) -- the port of
+// _score_padded's affine sweep, score only and with emit_preds, which the
+// first design swept on 1024-column CTA strips.
 //
 // Replaces the affine variant of the JAX package's Pallas kernel
 // anyseq_tpu/kernels/band.py _score_band_padded (boundary mode with rowf2
@@ -37,10 +38,10 @@
 // The scratch boundary columns (H and E) hold 2 * (strips - 1) * h ints,
 // the bound on memory that lets a chain of bands run any height.
 //
-// The first design ran K5's strip core (sweep_affine.cuh: 64 threads x 16
-// columns a CTA, a CTA barrier and a shared-memory hand-off of three
-// values a step, a compare and three selects a cell for the best,
-// publish every 64 rows, every resident CTA launched), and the H form of
+// The first design ran a CTA strip core (64 threads x 16 columns a CTA,
+// a CTA barrier and a shared-memory hand-off of three values a step, a
+// compare and three selects a cell for the best, publish every 64 rows,
+// every resident CTA launched), and the H form of
 // E, which puts three dependent operations a column on the row chain: a
 // 262,144 x 1,000,065 local band took 606.8 ms on an H100 80GB HBM3 at
 // 700 W, 28.4% of its bound (PERF.md). This one runs K8's warp strip
@@ -72,76 +73,111 @@ using band_affine_core::WARPS;
 template <int LANE_COLS>
 using SweepGeom = band_core::Geom<LANE_COLS, 2>;
 
-template <bool LOCAL, class G, bool CLOSED>
-__global__ void __launch_bounds__(LANES * WARPS)
+// The CTAs an SM that ptxas must leave registers for (__launch_bounds__'s
+// second argument; 0: its own choice). Left to itself, ptxas held K5p's
+// kernels at 16 columns a lane (one row a step, 64-bit code segments) to
+// 96 registers and spilled 12 bytes, LOCAL or not; they ask for three, as
+// K7's affine codes kernels do (swarm.cu MIN_CTAS).
+template <class G, int CB>
+constexpr int MIN_CTAS = CB != 0 && G::LANE_COLS == 16 ? 3 : 0;
+
+// CB: the bits of a cell's code (4: K5p, OUT_CODES), or 0 (K5, K8
+// affine, K10 affine).
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
+__global__ void __launch_bounds__(LANES * WARPS, MIN_CTAS<G, CB>)
     band_affine_kernel(BandAffine B) {
-  __shared__ band_affine_core::WarpSharedAffine<G> sh[WARPS];
+  constexpr int OUT = band_core::OUT_ALL | (CB ? band_core::OUT_CODES : 0);
+  __shared__ band_affine_core::WarpSharedAffine<G, CB> sh[WARPS];
   const int warp = (int)threadIdx.x / LANES;
   if ((int)blockIdx.x * WARPS + warp >= B.workers) return;
   for (;;) {
     const int k = band_affine_core::claim(B.ticket);
     if (k >= B.strips) return;
     if (k + 1 < B.strips)
-      band_affine_core::sweep<LOCAL, false, G, CLOSED>(B, k, sh[warp]);
+      band_affine_core::sweep<LOCAL, false, G, CLOSED, OUT>(B, k, sh[warp]);
     else
-      band_affine_core::sweep<LOCAL, true, G, CLOSED>(B, k, sh[warp]);
+      band_affine_core::sweep<LOCAL, true, G, CLOSED, OUT>(B, k, sh[warp]);
   }
 }
 
 template <class G>
 int strips_of(int n) { return (n + G::STRIP - 1) / G::STRIP; }
 
-// CLOSED: K5 (the closed-form boundary of a whole sweep); else K8 affine /
-// K10 affine.
-template <bool LOCAL, class G, bool CLOSED>
+// CLOSED: K5 / K5p (the closed-form boundary of a whole sweep); else K8
+// affine / K10 affine.
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
 int grid_of(int h, int n, int share, int max_grid) {
   return band_core::grid_of(
-      (const void*)band_affine_kernel<LOCAL, G, CLOSED>,
+      (const void*)band_affine_kernel<LOCAL, G, CLOSED, CB>,
       (h + G::ROWS - 1) / G::ROWS, strips_of<G>(n), share, max_grid, G::LAG);
 }
 
-template <bool LOCAL, class G, bool CLOSED>
+template <bool LOCAL, class G, bool CLOSED, int CB = 0>
 int launch(BandAffine B, int share, int max_grid, void* stream) {
   B.strips = strips_of<G>(B.n);
-  B.workers = grid_of<LOCAL, G, CLOSED>(B.h, B.n, share, max_grid);
-  auto kernel = band_affine_kernel<LOCAL, G, CLOSED>;
+  B.workers = grid_of<LOCAL, G, CLOSED, CB>(B.h, B.n, share, max_grid);
+  auto kernel = band_affine_kernel<LOCAL, G, CLOSED, CB>;
   ANYSEQ_LAUNCH(kernel, (B.workers + WARPS - 1) / WARPS, LANES * WARPS,
                 stream, B);
   return (int)cudaGetLastError();
 }
 
-// f(Form<...>{}) for one of K5's widths (= kernels/band.py AFFINE_WIDTHS),
-// or `bad` for another: 16 columns a lane is K8 affine's own kernel (one
-// row a step) on the sweep's boundary tensors (two rows a step ran no
-// faster there, and the closed form 10% slower, PERF.md); 8 and 4 the
-// closed form, two rows a lane a step.
-template <class F>
+// f(Form<...>{}) for one of K5's widths (= kernels/band.py AFFINE_WIDTHS)
+// or, with codes, of K5p's (the same widths), or `bad` for another. K5:
+// 16 columns a lane is K8 affine's own kernel (one row a step) on the
+// sweep's boundary tensors (two rows a step ran no faster there, and the
+// closed form 10% slower, PERF.md); 8 and 4 the closed form, two rows a
+// lane a step. K5p: the closed form with 4-bit codes at 16 (one row a
+// step, 64-bit segments), 8 and 4 (two rows, 32- and 16-bit segments),
+// K7's affine codes kernels.
+template <bool CODES, class F>
 int with_width(int lane_cols, int bad, F f) {
+  constexpr int CB = CODES ? 4 : 0;
   switch (lane_cols) {
-    case 16: return f(Form<BandGeom, false>{});
-    case 8: return f(Form<SweepGeom<8>, true>{});
-    case 4: return f(Form<SweepGeom<4>, true>{});
+    case 16:
+      if constexpr (CODES)
+        return f(Form<band_core::Geom<16>, true, CB>{});
+      else
+        return f(Form<BandGeom, false>{});
+    case 8: return f(Form<SweepGeom<8>, true, CB>{});
+    case 4: return f(Form<SweepGeom<4>, true, CB>{});
     default: return bad;
   }
 }
 
-template <bool LOCAL, class Fm>
-band_core::Width width(Fm) {
-  using G = typename Fm::G;
+template <bool LOCAL, class K>
+band_core::Width width(K) {
+  using G = typename K::G;
   return {G::LANE_COLS,
-          (const void*)band_affine_kernel<LOCAL, G, Fm::CLOSED>, G::ROWS,
-          G::LAG};
+          (const void*)band_affine_kernel<LOCAL, G, K::CLOSED, K::CB>,
+          G::ROWS, G::LAG};
 }
 
-// K5's width rule (band_sweep.cuh width_of, K1's) over its widths.
-template <bool LOCAL>
+// A step of K5p (cycles, band_sweep.cuh StepCost), fitted to its device
+// times at each width at 10k, 2,048 and 256 rows on an H100
+// (tools/k1_ab.py --preds --sweep, PERF.md): a warp alone on its
+// scheduler ~545 + 63 a column at one row a step (16 columns: ~1,550),
+// ~950 + 100 at two (8: ~1,750, 4: ~1,350); each warp that shares it,
+// K7's affine codes costs (swarm.cu STEP_AFFINE_*_CODES).
+constexpr band_core::StepCost STEP_ONE_CODES{545, 63, 66, 29};
+constexpr band_core::StepCost STEP_TWO_CODES{950, 100, 110, 53};
+
+// K5's width rule (band_sweep.cuh width_of, K1's) over its kernels; K5p's,
+// the level rule (band_sweep.cuh level_width) over its kernels on its own
+// step costs, as K2's (band.cu).
+template <bool LOCAL, bool CODES>
 int sweep_width(int h, int n) {
   band_core::Width widths[3];
+  band_core::StepCost costs[3];
   for (int w = 0; w < 3; ++w)
-    with_width(16 >> w, 0, [&](auto fm) {
-      widths[w] = width<LOCAL>(fm);
+    with_width<CODES>(16 >> w, 0, [&](auto kind) {
+      widths[w] = width<LOCAL>(kind);
+      costs[w] = widths[w].rows == 2 ? STEP_TWO_CODES : STEP_ONE_CODES;
       return 0;
     });
+  if (CODES)
+    return band_core::level_width(widths, costs, 3, &h, &n, 1, 8,
+                                  LLONG_MAX);
   return band_core::width_of(widths, 3, h, n);
 }
 
@@ -205,24 +241,32 @@ extern "C" int anyseq_band_affine_grid(int h, int n, int mode, int share,
 // and is checked against this when the library loads).
 extern "C" int anyseq_band_affine_strip() { return BandGeom::STRIP; }
 
-// K5: the single-pair affine score sweep of an h-row query against an
+// K5 and K5p: the single-pair affine sweep of an h-row query against an
 // n-column subject in `mode`, run as one band from the sweep's
 // closed-form boundary (engine/affine.py top_row_affine and
 // left_col_affine at row 0, the Myers-Miller one under `start_gap`) at
-// `lane_cols` columns a lane, one of K5's widths
-// (anyseq_sweep_affine_width's choice, or one a caller forces): at 16,
-// K8 affine's kernel reads that boundary from row_in and rowf_in (n ints
-// each), col_in and cole_in (h ints each); narrower, the kernel computes
-// it (those unread). Scratch and outputs as anyseq_band_affine's, with
-// strips of 32 * lane_cols columns; `max_grid` > 0 caps the warps.
-// Another width, or no boundary tensors at 16: cudaErrorInvalidValue.
+// `lane_cols` columns a lane, one of K5's widths or, with codes, of
+// K5p's (anyseq_sweep_affine_width's choice, or one a caller forces): K5
+// at 16 is K8 affine's kernel, which reads that boundary from row_in and
+// rowf_in (n ints each), col_in and cole_in (h ints each); otherwise the
+// kernel computes it (those unread). Scratch and outputs as
+// anyseq_band_affine's, with strips of 32 * lane_cols columns;
+// `max_grid` > 0 caps the warps. `codes` null: K5, score only; else K5p
+// also writes cell (i, j)'s 4-bit code PH | PE << 2 | PF << 3 (the plain
+// version's, engine/affine.py pack_codes4) in bits 4 * (j % 8) of word i
+// * code_words + j / 8 (code_words >= ceil(n / 8)), a lane's codes of a
+// row as one segment: a segment of columns past n - 1 is not stored, so
+// the caller zeroes the row's last word where no lane's segment reaches
+// its end. start_gap takes no codes. Another width, start_gap with codes,
+// or no boundary tensors where read: cudaErrorInvalidValue.
 extern "C" int anyseq_sweep_affine(
     const void* q, int h, const void* s, int n, int match, int mismatch,
     int gap_open, int gap_extend, int mode, int start_gap, int lane_cols,
     const void* row_in, const void* rowf_in, const void* col_in,
     const void* cole_in, int max_grid, void* ticket, void* bcols,
     void* bcols_e, void* flags, void* row_out, void* rowf_out,
-    void* last_col, void* last_col_e, void* bests, void* stream) {
+    void* last_col, void* last_col_e, void* bests, void* codes,
+    int code_words, void* stream) {
   const bool global = mode == MODE_GLOBAL, sg = global && start_gap != 0;
   const int neg = band_affine_core::NEG;
   const BandAffine B{(const uint8_t*)q,  h,
@@ -241,33 +285,46 @@ extern "C" int anyseq_sweep_affine(
                      (int*)bcols_e,      (int*)flags,
                      (int*)row_out,      (int*)rowf_out,
                      (int*)last_col,     (int*)last_col_e,
-                     (int*)bests};
+                     (int*)bests,        (unsigned*)codes,
+                     code_words};
   const int bad = (int)cudaErrorInvalidValue;
-  return with_width(lane_cols, bad, [&](auto fm) {
-    using Fm = decltype(fm);
-    using G = typename Fm::G;
-    if (!Fm::CLOSED && !(row_in && rowf_in && col_in && cole_in)) return bad;
+  if (codes && start_gap) return bad;
+  auto go = [&](auto kind) {
+    using K = decltype(kind);
+    using G = typename K::G;
+    if (!K::CLOSED && !(row_in && rowf_in && col_in && cole_in)) return bad;
     return mode == MODE_LOCAL
-               ? launch<true, G, Fm::CLOSED>(B, 1, max_grid, stream)
-               : launch<false, G, Fm::CLOSED>(B, 1, max_grid, stream);
-  });
+               ? launch<true, G, K::CLOSED, K::CB>(B, 1, max_grid, stream)
+               : launch<false, G, K::CLOSED, K::CB>(B, 1, max_grid, stream);
+  };
+  return codes ? with_width<true>(lane_cols, bad, go)
+               : with_width<false>(lane_cols, bad, go);
 }
 
-// The columns a lane K5 sweeps an h x n pair at in `mode` on the current
-// card (band_sweep.cuh width_of).
-extern "C" int anyseq_sweep_affine_width(int h, int n, int mode) {
-  return mode == MODE_LOCAL ? sweep_width<true>(h, n)
-                            : sweep_width<false>(h, n);
+// The columns a lane K5 (`codes` 0) or K5p sweeps an h x n pair at in
+// `mode` on the current card (band_sweep.cuh width_of).
+extern "C" int anyseq_sweep_affine_width(int h, int n, int mode,
+                                         int codes) {
+  const bool local = mode == MODE_LOCAL;
+  if (codes)
+    return local ? sweep_width<true, true>(h, n)
+                 : sweep_width<false, true>(h, n);
+  return local ? sweep_width<true, false>(h, n)
+               : sweep_width<false, false>(h, n);
 }
 
 // The warps anyseq_sweep_affine launches for an h x n pair in `mode` at
-// `lane_cols` columns a lane (-1 for a width K5 does not have).
+// `lane_cols` columns a lane, with codes or not (-1 for a width K5 or
+// K5p does not have).
 extern "C" int anyseq_sweep_affine_grid(int h, int n, int mode,
-                                        int lane_cols) {
-  return with_width(lane_cols, -1, [&](auto fm) {
-    using Fm = decltype(fm);
-    using G = typename Fm::G;
-    return mode == MODE_LOCAL ? grid_of<true, G, Fm::CLOSED>(h, n, 1, 0)
-                              : grid_of<false, G, Fm::CLOSED>(h, n, 1, 0);
-  });
+                                        int lane_cols, int codes) {
+  auto go = [&](auto kind) {
+    using K = decltype(kind);
+    using G = typename K::G;
+    return mode == MODE_LOCAL
+               ? grid_of<true, G, K::CLOSED, K::CB>(h, n, 1, 0)
+               : grid_of<false, G, K::CLOSED, K::CB>(h, n, 1, 0);
+  };
+  return codes ? with_width<true>(lane_cols, -1, go)
+               : with_width<false>(lane_cols, -1, go);
 }

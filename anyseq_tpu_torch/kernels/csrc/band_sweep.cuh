@@ -1,8 +1,8 @@
-// The strip core of K8 and K10 (band.cu), of K1, the single-pair score
-// sweep (band.cu anyseq_sweep), of K4, the level sweep (lastcols.cu, a
-// band a problem), and of K7, the batch sweep (swarm.cu, a band a
-// problem, with codes where asked): one strip of a band of the linear-gap
-// DP, swept by one warp.
+// The strip core of K8 and K10 (band.cu), of K1 and K2, the single-pair
+// sweep score only and with codes (band.cu anyseq_sweep), of K4, the
+// level sweep (lastcols.cu, a band a problem), and of K7, the batch sweep
+// (swarm.cu, a band a problem, with codes where asked): one strip of a
+// band of the linear-gap DP, swept by one warp.
 //
 // The strip's shape is a template parameter (Geom): lane t owns the
 // LANE_COLS consecutive columns [col0 + LANE_COLS * t, +LANE_COLS) of a
@@ -12,7 +12,8 @@
 // rule (width_of below), so that a subject of 100k columns, or a
 // Hirschberg half of 25k, still makes enough strips to fill the card: at
 // 32 it is K8's kernel on the sweep's boundary tensors, narrower the
-// CLOSED form, which computes that boundary. At step `step`
+// CLOSED form, which computes that boundary (K2: 16 or 8, CLOSED, with
+// codes). At step `step`
 // lane t works on row i = step - t: lane t-1 finished row i one step
 // earlier, and hands over H[i][its last column] and q[i] with
 // __shfl_up_sync; lane 0 takes the two from a ring in shared memory that
@@ -51,6 +52,7 @@
 #pragma once
 
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
@@ -89,7 +91,8 @@ using BandGeom = Geom<32>;
 // first maximum (bests), the band's bottom row (row_out; affine also
 // rowf_out, OUT_ROW_F) and its last column (last_col, and K10's right
 // halo; affine also last_col_e, OUT_COL_E), and each cell's code
-// (OUT_CODES, below). K8, K10, K1 and K5 write all but the codes; the
+// (OUT_CODES, below). K8, K10, K1 and K5 write all but the codes, K2 and
+// K5p all of them; the
 // level sweeps only what they return (K4 the bottom row, K5L the H and E
 // last columns), and their GLOBAL problems need no best; the batch sweep
 // K7 the bottom row, the H last column, the best where LOCAL and the
@@ -98,13 +101,15 @@ constexpr int OUT_BEST = 1, OUT_ROW = 2, OUT_COL = 4, OUT_COL_E = 8,
               OUT_ROW_F = 16, OUT_CODES = 32;
 constexpr int OUT_ALL = OUT_BEST | OUT_ROW | OUT_COL | OUT_COL_E | OUT_ROW_F;
 
-// A strip shape G and whether a kernel reads the band's boundary from
+// A strip shape G, whether a kernel reads the band's boundary from
 // tensors (K8's, K8 affine's) or computes the closed form of a whole
-// sweep (CLOSED: K1, K5).
-template <class G_, bool CLOSED_>
+// sweep (CLOSED: K1, K2, K5, K5p), and the bits of a cell's code it
+// writes (CB: K2 2, K5p 4; 0: none).
+template <class G_, bool CLOSED_, int CB_ = 0>
 struct Form {
   using G = G_;
   static constexpr bool CLOSED = CLOSED_;
+  static constexpr int CB = CB_;
 };
 
 // The halo hand-off of one K10 launch (all null for K8).
@@ -739,9 +744,10 @@ struct StepCost {
   int fixed, per_col, issue_fixed, issue_per_col;
 };
 
-// The width rule of K4, K5L and K7, over `widths` (at most LEVEL_WIDTHS,
-// widest first) with their step costs: the least modelled time among the
-// widths whose boundary columns -- (strips_b - 1) x h_b values a problem,
+// The width rule of K4, K5L and K7 (and of K2 and K5p, a pair one
+// problem), over `widths` (at most LEVEL_WIDTHS, widest first) with their
+// step costs: the least modelled time among the widths whose boundary
+// columns -- (strips_b - 1) x h_b values a problem,
 // of `bytes` each (4 linear; 8 affine, H and E) -- fit in `cap` bytes (the
 // caller's share of the card's free memory), the wider on a tie; the
 // widest where none fits (the most scratch any level takes, for the

@@ -1,8 +1,9 @@
-// The strip core of K8 affine and K10 affine (band_affine.cu), of K5, the
-// single-pair affine score sweep (band_affine.cu anyseq_sweep_affine), of
-// K5L, the affine level sweep (lastcols_affine.cu, a band a problem), and
-// of K7's affine mode (swarm.cu, with 4-bit codes where asked): one strip
-// of a band of the affine-gap (Gotoh) DP, swept by one warp. The
+// The strip core of K8 affine and K10 affine (band_affine.cu), of K5 and
+// K5p, the single-pair affine sweep score only and with 4-bit codes
+// (band_affine.cu anyseq_sweep_affine), of K5L, the affine level sweep
+// (lastcols_affine.cu, a band a problem), and of K7's affine mode
+// (swarm.cu, with 4-bit codes where asked): one strip of a band of the
+// affine-gap (Gotoh) DP, swept by one warp. The
 // affine twin of band_sweep.cuh, whose lanes, CTAs, strip shapes (Geom),
 // staging rhythm, flags, claim, grid rule and width rule it shares.
 //

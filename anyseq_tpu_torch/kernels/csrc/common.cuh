@@ -73,13 +73,4 @@ __device__ __forceinline__ void wait_for(const int* flag, int value,
 __device__ __forceinline__ int load_cg(const int* p) { return __ldcg(p); }
 __device__ __forceinline__ int load_sys(const int* p) { return *(const volatile int*)p; }
 
-// CTAs of `kernel` that fit on the current card at once.
-inline int resident_ctas(const void* kernel, int threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  return per_sm * sms > 0 ? per_sm * sms : 1;
-}
-
 }  // namespace anyseq

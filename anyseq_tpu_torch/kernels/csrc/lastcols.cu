@@ -45,7 +45,7 @@
 // modelled time among the widths whose boundary columns fit the caller's
 // cap on memory; the warps by level_grid.
 //
-// What the first design (sweep.cuh: a CTA of 64 threads x 16 columns a
+// What the first design (a CTA strip core: 64 threads x 16 columns a
 // 1024-column strip, a CTA barrier a step, strips 64 steps apart, every
 // resident CTA launched; the problem in its own orientation) took on an
 // H100 80GB HBM3 at 700 W (PERF.md): 7.262 ms for level 2 of the 100k

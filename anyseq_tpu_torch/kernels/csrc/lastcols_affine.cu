@@ -41,7 +41,7 @@
 // level_width with H and E counted in the boundary columns
 // (anyseq_lastcols_affine_width).
 //
-// What the first design (sweep_affine.cuh: a CTA of 64 threads x 16
+// What the first design (a CTA strip core: a CTA of 64 threads x 16
 // columns a 1024-column strip, a CTA barrier and a shared-memory hand-off
 // of three values a step, E in its H form, three dependent operations a
 // column on the row chain) took on an H100 80GB HBM3 at 700 W (PERF.md):

@@ -1,12 +1,12 @@
 """K1/K2 and K5/K5p wrappers: the single-pair DP sweep, linear or affine,
-chosen by the scoring's type. Score only (K1, K5), it runs as one band of
-the warp strip cores (``csrc/band.cu`` anyseq_sweep, ``csrc/band_affine.cu``
+chosen by the scoring's type, as one band of the warp strip cores
+(``csrc/band.cu`` anyseq_sweep, ``csrc/band_affine.cu``
 anyseq_sweep_affine: K8's kernels at a strip width the card's width rule
 chooses per launch) from the closed-form boundary of ``linmem.top_row`` /
 ``left_col`` (``affine.top_row_affine`` / ``left_col_affine``), which the
-kernels compute, or at K8's own width read from those tensors; with codes
-(K2, K5p), on the CTA strip cores of ``csrc/wavefront.cu`` and
-``csrc/wavefront_affine.cu``.
+kernels compute, or, score only at K8's own width, read from those
+tensors. Score only (K1, K5), or with each cell's code (K2, K5p: the
+cores' ``OUT_CODES`` mode, at the widths that have codes).
 
 :func:`score` returns the output dict of ``engine.linmem.score_rows``
 (``last_row``, ``last_col``, ``best``; with ``emit_preds`` also ``preds``,
@@ -29,7 +29,6 @@ from anyseq_tpu_torch.engine import affine, linmem
 from anyseq_tpu_torch.kernels import _build, band
 from anyseq_tpu_torch.kernels._sweep import (
     MODE_CODE,
-    STRIP,
     check_pair,
     reduce_best,
     strips_of,
@@ -73,46 +72,31 @@ def score(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
     return launch(_build.library(), q, s, mode, sc, emit_preds)
 
 
+def _codes(m: int, n: int, width: int, per_word: int, dev):
+    """The (m, ceil(n / per_word)) code words a K2 / K5p launch at `width`
+    columns a lane writes: a lane's segment of a row is stored only where
+    it holds a column below n, so the last word of each row is zeroed
+    where no segment reaches its end."""
+    words = -(-n // per_word)
+    codes = torch.empty((m, words), dtype=torch.int32, device=dev)
+    if -(-n // width) * width < words * per_word:
+        codes[:, -1] = 0
+    return codes
+
+
 def launch(lib, q, s, mode: Mode, sc: LinearScoring, emit_preds: bool,
            width: int = 0, grid: int = 0):
     """Launch K1 (score only) or K2 (with codes) of `lib` on q and s,
-    wherever they lie. K1 sweeps at `width` columns a lane (0: the width
-    rule's, ``anyseq_sweep_width``), `grid` > 0 capping its warps."""
-    if not emit_preds:
-        return _sweep(lib, q, s, mode, sc, width, grid)
-    m, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
-    i32 = {"dtype": torch.int32, "device": q.device}
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(strips, **i32)
-    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
-    last_row = torch.empty(n, **i32)
-    last_col = torch.empty(m, **i32)
-    bests = torch.empty((strips, 3), **i32)
-    pred_stride = -(-n // linmem.CODES_PER_WORD)
-    preds = torch.empty((m, pred_stride), **i32)
-    err = lib.anyseq_wavefront(
-        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
-        MODE_CODE[mode], ticket.data_ptr(), bcols.data_ptr(),
-        flags.data_ptr(), last_row.data_ptr(), last_col.data_ptr(),
-        bests.data_ptr(), preds.data_ptr(), pred_stride,
-        _build.stream(q.device),
-    )
-    _build.check(err, "wavefront")
-    _build.launches["wavefront_preds"] += 1
-    return {"last_row": last_row, "last_col": last_col,
-            "best": reduce_best(bests), "preds": preds}
-
-
-def _sweep(lib, q, s, mode: Mode, sc: LinearScoring, width: int, grid: int):
-    """K1: the whole sweep as one band of the warp strip core
+    wherever they lie: the whole sweep as one band of the warp strip core
     (``csrc/band.cu`` anyseq_sweep) from the closed-form boundary, which
-    the kernel computes, or (K8's own width) reads from its tensors."""
+    the kernel computes, or (K1 at K8's own width) reads from its
+    tensors; at `width` columns a lane (0: the width rule's,
+    ``anyseq_sweep_width``), `grid` > 0 capping its warps."""
     m, n = int(q.shape[0]), int(s.shape[0])
     dev, code = q.device, MODE_CODE[mode]
-    width = width or lib.anyseq_sweep_width(m, n, code)
+    width = width or lib.anyseq_sweep_width(m, n, code, int(emit_preds))
     edges = ()
-    if width == band.LANE_COLS:
+    if width == band.LANE_COLS and not emit_preds:
         edges = (linmem.top_row(mode, sc, n, dev),
                  linmem.left_col(mode, sc, 0, m, dev)[1])
     row, col = (t.data_ptr() for t in edges) if edges else (None, None)
@@ -123,68 +107,43 @@ def _sweep(lib, q, s, mode: Mode, sc: LinearScoring, width: int, grid: int):
     last_row = torch.empty(n, **i32)
     last_col = torch.empty(m, **i32)
     bests = torch.empty((strips, 3), **i32)
+    preds = (_codes(m, n, width, linmem.CODES_PER_WORD, dev) if emit_preds
+             else None)
     err = lib.anyseq_sweep(
         q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap,
         code, width, row, col, grid, ticket_flags.data_ptr(),
         bcols.data_ptr(), ticket_flags.data_ptr() + 4, last_row.data_ptr(),
-        last_col.data_ptr(), bests.data_ptr(), _build.stream(dev),
+        last_col.data_ptr(), bests.data_ptr(),
+        preds.data_ptr() if emit_preds else None,
+        preds.shape[1] if emit_preds else 0, _build.stream(dev),
     )
     _build.check(err, "wavefront")
-    _build.launches["wavefront_score"] += 1
-    return {"last_row": last_row, "last_col": last_col,
+    _build.launches["wavefront_preds" if emit_preds
+                    else "wavefront_score"] += 1
+    outs = {"last_row": last_row, "last_col": last_col,
             "best": reduce_best(bests)}
+    if emit_preds:
+        outs["preds"] = preds
+    return outs
 
 
 def launch_affine(lib, q, s, mode: Mode, sc: AffineScoring, emit_preds: bool,
                   start_gap: bool, emit_col_e: bool, width: int = 0,
                   grid: int = 0):
     """Launch K5 (score only) or K5p (with codes) of `lib` on q and s,
-    wherever they lie; K5 at `width` columns a lane (0: the width rule's,
-    ``anyseq_sweep_affine_width``), `grid` > 0 capping its warps."""
-    if not emit_preds:
-        return _sweep_affine(lib, q, s, mode, sc, start_gap, emit_col_e,
-                             width, grid)
-    m, n = int(q.shape[0]), int(s.shape[0])
-    strips = -(-n // STRIP)
-    i32 = {"dtype": torch.int32, "device": q.device}
-    ticket = torch.zeros(1, **i32)
-    flags = torch.zeros(strips, **i32)
-    bcols = torch.empty(max(strips - 1, 1) * m, **i32)
-    bcols_e = torch.empty(max(strips - 1, 1) * m, **i32)
-    last_row = torch.empty(n, **i32)
-    last_col = torch.empty(m, **i32)
-    last_col_e = torch.empty(m, **i32)
-    bests = torch.empty((strips, 3), **i32)
-    pred_stride = -(-n // affine.CODES4_PER_WORD)
-    preds = torch.empty((m, pred_stride), **i32)
-    err = lib.anyseq_wavefront_affine(
-        q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
-        sc.gap_extend, MODE_CODE[mode], ticket.data_ptr(), bcols.data_ptr(),
-        bcols_e.data_ptr(), flags.data_ptr(), last_row.data_ptr(),
-        last_col.data_ptr(), last_col_e.data_ptr(), bests.data_ptr(),
-        preds.data_ptr(), pred_stride, _build.stream(q.device),
-    )
-    _build.check(err, "wavefront_affine")
-    _build.launches["wavefront_affine_preds"] += 1
-    outs = {"last_row": last_row, "last_col": last_col,
-            "best": reduce_best(bests)}
-    if emit_col_e:
-        outs["last_col_e"] = last_col_e
-    outs["preds"] = preds
-    return outs
-
-
-def _sweep_affine(lib, q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
-                  emit_col_e: bool, width: int, grid: int):
-    """K5: the whole sweep as one band of the affine warp strip core
-    (``csrc/band_affine.cu`` anyseq_sweep_affine) from the closed-form
-    boundary, the Myers-Miller one under `start_gap`, which the kernel
-    computes, or (K8 affine's own width) reads from its tensors."""
+    wherever they lie: the whole sweep as one band of the affine warp
+    strip core (``csrc/band_affine.cu`` anyseq_sweep_affine) from the
+    closed-form boundary, the Myers-Miller one under `start_gap` (score
+    only), which the kernel computes, or (K5 at K8 affine's own width)
+    reads from its tensors; at `width` columns a lane (0: the width
+    rule's, ``anyseq_sweep_affine_width``), `grid` > 0 capping its
+    warps."""
     m, n = int(q.shape[0]), int(s.shape[0])
     dev, code = q.device, MODE_CODE[mode]
-    width = width or lib.anyseq_sweep_affine_width(m, n, code)
+    width = width or lib.anyseq_sweep_affine_width(m, n, code,
+                                                   int(emit_preds))
     edges = ()
-    if width == band.AFFINE_LANE_COLS:
+    if width == band.AFFINE_LANE_COLS and not emit_preds:
         edges = (*affine.top_row_affine(mode, sc, n, start_gap, dev),
                  *affine.left_col_affine(mode, sc, 0, m, start_gap, dev)[1:])
     ptrs = [t.data_ptr() for t in edges] if edges else [None] * 4
@@ -198,18 +157,24 @@ def _sweep_affine(lib, q, s, mode: Mode, sc: AffineScoring, start_gap: bool,
     last_col = torch.empty(m, **i32)
     last_col_e = torch.empty(m, **i32)
     bests = torch.empty((strips, 3), **i32)
+    preds = (_codes(m, n, width, affine.CODES4_PER_WORD, dev) if emit_preds
+             else None)
     err = lib.anyseq_sweep_affine(
         q.data_ptr(), m, s.data_ptr(), n, sc.match, sc.mismatch, sc.gap_open,
         sc.gap_extend, code, int(start_gap), width, *ptrs, grid,
         ticket_flags.data_ptr(), bcols.data_ptr(), bcols_e.data_ptr(),
         ticket_flags.data_ptr() + 4, last_row.data_ptr(),
         rowf_out.data_ptr(), last_col.data_ptr(), last_col_e.data_ptr(),
-        bests.data_ptr(), _build.stream(dev),
+        bests.data_ptr(), preds.data_ptr() if emit_preds else None,
+        preds.shape[1] if emit_preds else 0, _build.stream(dev),
     )
     _build.check(err, "wavefront_affine")
-    _build.launches["wavefront_affine_score"] += 1
+    _build.launches["wavefront_affine_preds" if emit_preds
+                    else "wavefront_affine_score"] += 1
     outs = {"last_row": last_row, "last_col": last_col,
             "best": reduce_best(bests)}
     if emit_col_e:
         outs["last_col_e"] = last_col_e
+    if emit_preds:
+        outs["preds"] = preds
     return outs

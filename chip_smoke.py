@@ -9,8 +9,9 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    (nvidia-smi), and the nvcc build of the kernels from
    ``anyseq_tpu_torch/kernels/csrc/``; beside it, the strip-sweep
    sources built once more with ``-Xptxas -v`` (each kernel's registers
-   and spills), and the warp strip cores of K8/K10 and K1 (``band.cu``),
-   of their affine modes and K5 (``band_affine.cu``) and of the level
+   and spills), and the warp strip cores of K8/K10, K1 and K2
+   (``band.cu``), of their affine modes, K5 and K5p (``band_affine.cu``)
+   and of the level
    sweeps K4 and K5L (``lastcols.cu``, ``lastcols_affine.cu``), at every
    strip width, checked to spill nothing, each kernel's SASS searched for
    the DPX instructions of the chain (VIADDMNMX, VIMNMX3); the batch
@@ -22,11 +23,16 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    times: linear scoring 2/-1/-1 and affine scoring 2/-1/-3/-1. K1 and
    K5 also forced to each strip width they have (3 modes, K5's
    start_gap), and at ragged edges (one column, fewer than a lane holds,
-   one past a strip, one row; ge = 0 and go = 0). K4 and K5L forced to
-   each width they have on ragged levels (problems of one row and of one
-   column, narrower than a lane, a strip wide and one past, rows on both
-   sides of the 32-row chunk, odd rows, mixed strip counts, taller and
-   wider than tall; K5L with mixed start_gap flags, ge = 0 and go = 0).
+   one past a strip, one row; ge = 0 and go = 0). K2 and K5p (codes)
+   forced to each width they have at ~2000 x 3000 in 3 modes, each
+   walked by K3 / K6, on LOCAL ties (a run over three strips, planted
+   equal maxima) and at the same ragged edges and affine column-0
+   scorings (``phase2_code_sweeps``, a generator of its own). K4 and
+   K5L forced to each width they have on ragged levels (problems of one
+   row and of one column, narrower than a lane, a strip wide and one
+   past, rows on both sides of the 32-row chunk, odd rows, mixed strip
+   counts, taller and wider than tall; K5L with mixed start_gap flags,
+   ge = 0 and go = 0).
    K10 and K10 affine (the collective sweep) over 2 and 4 ranks of cuda:0, and
    over every card where there are several: two chained bands in 3
    modes and under start_gap, and a subject that leaves the last rank
@@ -87,7 +93,10 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    main paths gave it in phase 3 (kept as they passed), bit for bit; K1
    and K5 with the width and warps they ran at, bound and share, also
    alone at the largest sweep of the 100k constructions and (K5) the 100k
-   local affine score. K4 and K5L at every level of the 100k
+   local affine score; K2 and K5p at the 10k full tracebacks and, local,
+   at 2,048 x 2,048 and 256 x 256, each with its width, warps, bound and
+   share of its event time and of its device time (torch.profiler). K4
+   and K5L at every level of the 100k
    constructions and at each width they have, each level with the rule's
    width, warps, boundary scratch, critical path, bound and share. Every
    K4 / K5L launch of phase 3 must have kept its boundary columns within
@@ -131,10 +140,10 @@ SEED = 2024
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     # name: (source, the TPU kernel it replaces, the main paths that run it)
-    # K1 and K5 run on the warp strip cores of K8 and K8 affine
+    # K1 / K2 and K5 / K5p run on the warp strip cores of K8 and K8 affine
     "wavefront_score": ("anyseq_tpu_torch/kernels/csrc/band.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear genome"),
-    "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/wavefront.cu",
+    "wavefront_preds": ("anyseq_tpu_torch/kernels/csrc/band.cu",
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
              "anyseq_tpu/engine/device_tb.py:405",
@@ -145,7 +154,7 @@ KERNELS = {
         "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine genome"),
     "wavefront_affine_preds": (
-        "anyseq_tpu_torch/kernels/csrc/wavefront_affine.cu",
+        "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine"),
     "lastcols_affine": ("anyseq_tpu_torch/kernels/csrc/lastcols_affine.cu",
                         "anyseq_tpu/kernels/band.py:1677",
@@ -208,7 +217,9 @@ SWARM_LARGE_BP = 4_500           # phase 2's largest K7 problems
 ECOLI_SCORE = 7_807_881
 # the kernels whose core was redesigned for the H100: the warp strip cores
 REDESIGNED = {"wavefront_score": "csrc/band_sweep.cuh",
+              "wavefront_preds": "csrc/band_sweep.cuh",
               "wavefront_affine_score": "csrc/band_sweep_affine.cuh",
+              "wavefront_affine_preds": "csrc/band_sweep_affine.cuh",
               "band": "csrc/band_sweep.cuh",
               "band_collective": "csrc/band_sweep.cuh",
               "band_affine": "csrc/band_sweep_affine.cuh",
@@ -267,6 +278,30 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 5):
+    """The median device time in ms of the kernel whose name holds
+    `kernel` over `reps` runs of fn() under torch.profiler, after one
+    warm-up; None where three profiles in a row missed one of its runs
+    (a profile now and then catches no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        runs = [(e.time_range.end - e.time_range.start) / 1e3
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if len(runs) == reps:
+            return float(np.median(runs))
+    return None
 
 
 def timed(fn):
@@ -571,16 +606,19 @@ def phase2_walks(rng, errors):
         errors[name] = max(errors.get(name, 0), err)
 
 
-def sweep_geometry(affine: bool, m: int, n: int, mode, width: int = 0):
-    """(width, grid) of a K1 / K5 launch on m x n in `mode`: the columns a
-    lane its width rule chooses on this card (or `width`), and the warps
-    it then launches."""
+def sweep_geometry(affine: bool, m: int, n: int, mode, width: int = 0,
+                   codes: bool = False):
+    """(width, grid) of a K1 / K5 (`codes`: K2 / K5p) launch on m x n in
+    `mode`: the columns a lane its width rule chooses on this card (or
+    `width`), and the warps it then launches."""
     from anyseq_tpu_torch.kernels import _build
 
     lib = _build.library()
     pre = "anyseq_sweep_affine" if affine else "anyseq_sweep"
-    width = width or getattr(lib, pre + "_width")(m, n, band_mode(mode))
-    return width, getattr(lib, pre + "_grid")(m, n, band_mode(mode), width)
+    width = width or getattr(lib, pre + "_width")(m, n, band_mode(mode),
+                                                  int(codes))
+    return width, getattr(lib, pre + "_grid")(m, n, band_mode(mode), width,
+                                              int(codes))
 
 
 def phase2_sweeps(errors):
@@ -657,6 +695,126 @@ def phase2_sweeps(errors):
                     held(f"phase2 {kname} edge {scoring} {mode.value} "
                          f"start_gap={sg}", q[:m], s[:n], mode, scoring, sg,
                          reps=0)
+
+
+def phase2_code_sweeps(errors):
+    """K2 and K5p, the sweeps with codes on the warp strip cores' OUT_CODES
+    mode, forced to each width they have against their plain versions,
+    bit for bit (codes, last row and column, best; K5p also the E last
+    column): 3 modes at ~2000 x 3000, each walked by K3 / K6 from its end
+    cell against the plain walk; LOCAL ties (a run of one symbol, whose
+    maximum fills a whole row over three strips, and equal planted maxima
+    on one row in two strips after an earlier-column one on a later row);
+    ragged edges and, K5p, scorings with ge = 0 and go = 0, whose PE bit
+    of column 0 comes from E[i][-1] = NEG + go - ge. A generator of its
+    own, so that the main paths' pairs stay those of every earlier run."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.engine import linmem
+    from anyseq_tpu_torch.kernels import _build, band, walk, wavefront
+
+    rng = np.random.default_rng(SEED + 12)
+    dev = torch.device(DEVICE)
+    lib = _build.library()
+    sc, asc = LinearScoring(), AffineScoring(*AFFINE)
+
+    def dev_u8(b):
+        return torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev)
+
+    def sweep(q, s, mode, scoring, width):
+        if isinstance(scoring, AffineScoring):
+            return wavefront.launch_affine(lib, q, s, mode, scoring, True,
+                                           False, True, width=width)
+        return wavefront.launch(lib, q, s, mode, scoring, True, width=width)
+
+    def plain(q, s, mode, scoring):
+        if isinstance(scoring, AffineScoring):
+            want = wavefront.plain_affine(q, s, mode, scoring, False, True)
+            want["preds"] = wavefront.plain_affine_preds(q, s, mode,
+                                                         scoring)["preds"]
+            return want
+        return wavefront.plain_preds(q, s, mode, scoring)
+
+    def held(tag, q, s, mode, scoring, reps, walked=False):
+        affine = isinstance(scoring, AffineScoring)
+        name = "wavefront_affine_preds" if affine else "wavefront_preds"
+        want, plain_ms = timed(lambda: plain(q, s, mode, scoring))
+        m, n = q.numel(), s.numel()
+        rule = sweep_geometry(affine, m, n, mode, codes=True)[0]
+        out = []
+        for w in band.AFFINE_CODE_WIDTHS if affine else band.CODE_WIDTHS:
+            got = sweep(q, s, mode, scoring, w)
+            err = max_abs_err(got, want)
+            check(err == 0, f"{tag} {m}x{n} width {w}: kernel == plain "
+                            f"(max_abs_err {err})")
+            errors[name] = max(errors.get(name, 0), err)
+            if reps:
+                ms = cuda_ms(lambda: sweep(q, s, mode, scoring, w), reps)
+                out.append(f"{w}: {ms:.3f} ms, " + str(sweep_geometry(
+                    affine, m, n, mode, w, codes=True)[1]) + " warps")
+            else:
+                out.append(str(w))
+        print(f"{tag} {m}x{n} equal=True at widths {'; '.join(out)} "
+              f"(rule: {rule}) plain_ms={plain_ms:.1f}", flush=True)
+        if walked:
+            wname, wtag = ("walk_affine", "K6") if affine else ("walk", "K3")
+            end = linmem.extract_end(want, m, n, mode)[None, 1:]
+            args = (want["preds"][None], q[None], s[None], end, mode)
+            if affine:
+                no_gap = torch.zeros(1, dtype=torch.bool, device=dev)
+                args += (no_gap, no_gap)
+            fn = walk.walk_affine if affine else walk.walk
+            err, _, _ = compare(
+                f"{tag} then {wtag} {wname} from the end cell {m}x{n}",
+                lambda: fn(*args),
+                lambda: (walk.plain_affine if affine else walk.plain)(*args))
+            errors[wname] = max(errors.get(wname, 0), err)
+        return want
+
+    qb, sb = related_pair(rng, 2000)
+    q, s = dev_u8(qb), dev_u8(sb + related_pair(rng, 3000 - len(sb))[0])
+    for scoring in (sc, asc):
+        kname = "K5p" if scoring is asc else "K2"
+        for mode in Mode:
+            held(f"phase2 {kname} {mode.value}", q, s, mode, scoring,
+                 reps=3, walked=True)
+    # LOCAL ties at each width's strips: the first maximum in row-major
+    # order, under match 1 and -100 for a mismatch or a gap
+    x, y = b"ACGTTGCAAGTC", b"TTGACCAGTGCA"
+    for scoring in (LinearScoring(1, -100, -100),
+                    AffineScoring(1, -100, -100, -100)):
+        affine = isinstance(scoring, AffineScoring)
+        kname = "K5p" if affine else "K2"
+        for w in band.AFFINE_CODE_WIDTHS if affine else band.CODE_WIDTHS:
+            strip = 32 * w
+            run = dev_u8(b"A" * 3 * strip)
+            got = held(f"phase2 {kname} ties run strips of {strip}",
+                       run[:50], run, Mode.LOCAL, scoring, reps=0)
+            check(got["best"].tolist() == [50, 49, 49],
+                  f"{kname} run: first maximum at (49, 49)")
+            qp = np.frombuffer(b"AC", np.uint8)[rng.integers(0, 2, 80)]
+            sp = np.frombuffer(b"GT", np.uint8)[rng.integers(0, 2,
+                                                           3 * strip)]
+            qp, sp = qp.copy(), sp.copy()
+            for text, qi, sj in ((x, 40, 2 * strip + 30),
+                                 (x, 40, strip + 30), (y, 60, 30)):
+                b = np.frombuffer(text, np.uint8)
+                qp[qi - len(b) + 1:qi + 1] = b
+                sp[sj - len(b) + 1:sj + 1] = b
+            got = held(f"phase2 {kname} ties planted strips of {strip}",
+                       dev_u8(qp.tobytes()), dev_u8(sp.tobytes()),
+                       Mode.LOCAL, scoring, reps=0)
+            check(got["best"].tolist() == [12, 40, strip + 30],
+                  f"{kname} planted: first maximum at (40, {strip + 30})")
+    # ragged edges, and the affine chain's edges at column 0
+    edges = sorted({1, 3, 37} | {32 * w + 1 for w in
+                                 band.CODE_WIDTHS + band.AFFINE_CODE_WIDTHS})
+    for scoring in (sc, asc, AffineScoring(1, -6, -4, 0),
+                    AffineScoring(2, -1, 0, -1)):
+        kname = "K2" if scoring is sc else "K5p"
+        for mode in (Mode.LOCAL, Mode.GLOBAL):
+            for m, n in [(40, w) for w in edges] + [(1, 300), (70, 1)]:
+                held(f"phase2 {kname} edge {scoring} {mode.value}", q[:m],
+                     s[:n], mode, scoring, reps=0)
 
 
 def level_shapes(width: int):
@@ -1233,8 +1391,7 @@ def phase2_band(rng, errors):
                             lambda: kernel(lib, *second),
                             lambda: plain(*second))
         errors[name] = max(errors.get(name, 0), err)
-        strips = -(-n // (band.AFFINE_STRIP if is_affine
-                          else wavefront.STRIP))
+        strips = -(-n // (band.AFFINE_STRIP if is_affine else band.STRIP))
         want = plain(*second)
         grids = [1, 7, strips - 1]
         for grid in grids:
@@ -1362,7 +1519,6 @@ def phase2_collective(rng, errors):
     from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
     from anyseq_tpu_torch.dist import collective
     from anyseq_tpu_torch.kernels import band
-    from anyseq_tpu_torch.kernels._sweep import STRIP
 
     dev = torch.device(DEVICE)
     qb, sb = related_pair(rng, COLL_BP)
@@ -1376,7 +1532,7 @@ def phase2_collective(rng, errors):
     for ring in rings():
         K = len(ring)
         # n where the last rank has no columns: Nl = 1024, K - 1 active
-        s_empty = s_full[:(K - 1) * STRIP - 100]
+        s_empty = s_full[:(K - 1) * band.STRIP - 100]
         for s in (s_full, s_empty):
             Nl, active, _, bands = collective.geometry(q.numel(), s.numel(),
                                                        K, COLL_ROWS)
@@ -1404,8 +1560,8 @@ def phase2_collective(rng, errors):
                 err, _, _ = compare(label, run, plain, reps=2)
                 errors[name] = max(errors.get(name, 0), err)
                 want = plain()
-                strips = Nl // (band.AFFINE_STRIP
-                                if isinstance(sc, AffineScoring) else STRIP)
+                strips = Nl // (band.AFFINE_STRIP if isinstance(
+                    sc, AffineScoring) else band.STRIP)
                 grids = sorted({1, 7, max(strips - 1, 1)})
                 for grid in grids:
                     with collective_grid(grid):
@@ -1538,9 +1694,8 @@ def phase2_swarm_affine_codes(rng, errors):
 # must not spill and whose SASS must hold the chain's DPX instructions
 # (the warp strip cores), and the walks, which must not spill either (a
 # window's loads wait in registers)
-PTXAS_SOURCES = ("wavefront.cu", "lastcols.cu", "wavefront_affine.cu",
-                 "lastcols_affine.cu", "band.cu", "band_affine.cu",
-                 "swarm.cu", "walk.cu", "walk_affine.cu")
+PTXAS_SOURCES = ("lastcols.cu", "lastcols_affine.cu", "band.cu",
+                 "band_affine.cu", "swarm.cu", "walk.cu", "walk_affine.cu")
 WARP_CORES = ("band.cu", "band_affine.cu", "lastcols.cu",
               "lastcols_affine.cu", "swarm.cu")
 WALK_CORES = ("walk.cu", "walk_affine.cu")
@@ -1590,9 +1745,9 @@ def ptxas_entries(out: str):
 def build_report():
     """Start nvcc with ``-Xptxas -v`` on PTXAS_SOURCES (beside the main
     build); returns a function that waits for them, prints each kernel's
-    registers and spills, and checks that the warp strip cores (K8/K10 and
-    their affine modes) spill nothing and that their SASS holds the
-    chain's DPX instructions."""
+    registers and spills, and then checks that the warp strip cores and
+    the walks spill nothing and that the cores' SASS holds the chain's
+    DPX instructions."""
     import tempfile
 
     from anyseq_tpu_torch.kernels import _build
@@ -1608,6 +1763,7 @@ def build_report():
             stderr=subprocess.STDOUT, text=True))
 
     def report():
+        failed = []
         with tmp:
             for name, (obj, proc) in procs.items():
                 out = proc.communicate()[0]
@@ -1631,9 +1787,9 @@ def build_report():
                           f"registers, {spills} bytes spilled"
                           + (f", DPX {json.dumps(counts)}" if counts
                              else ""), flush=True)
-                    if name in WARP_CORES + WALK_CORES:
-                        check(spills == 0,
-                              f"{name} {kernel}<{flags}> spills nothing")
+                    if name in WARP_CORES + WALK_CORES and spills != 0:
+                        failed.append(f"{name} {kernel}<{flags}> spills "
+                                      f"nothing")
                     if name in WARP_CORES:
                         # the chain's max-plus in every kernel; the
                         # three-way max of the best where there is one (the
@@ -1642,9 +1798,12 @@ def build_report():
                         best = not (name.startswith("lastcols")
                                     or name == "swarm.cu"
                                     and flags[1] == "0")
-                        check(counts and counts["VIADDMNMX"] > 0
-                              and (counts["VIMNMX3"] > 0 or not best),
-                              f"{name} {kernel}<{flags}>'s SASS holds DPX")
+                        if not (counts and counts["VIADDMNMX"] > 0
+                                and (counts["VIMNMX3"] > 0 or not best)):
+                            failed.append(f"{name} {kernel}<{flags}>'s "
+                                          f"SASS holds DPX")
+        # every kernel's line first, then each failed check
+        check(not failed, "; ".join(failed))
     return report
 
 
@@ -2165,6 +2324,8 @@ def phase4(kept, timings, errors, sm_clock_mhz):
     affine 100k construction; K7 at the largest chunk of the 10,000-pair
     local linear ``align_scores_batch`` (score-only) and
     ``align_batch`` (with codes)."""
+    from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring, Mode
+    from anyseq_tpu_torch.kernels import _build
 
     def kept_of(call, fn, pred=lambda args: True):
         return [args for c, f, args in kept if c == call and f == fn
@@ -2183,14 +2344,26 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         return f"B={q.shape[0]} up to {int(ms.max())}x{int(ns.max())}"
 
     def geometry(tag, name, call, fn, args, ms):
-        """A K1 / K5 launch's width and warps, bound and share."""
+        """A K1 / K5 launch's width and warps, bound and share; K2 / K5p's
+        also with the kernel's device time (torch.profiler) and its
+        share."""
         m, n = args[1].numel(), args[2].numel()
-        width, grid = sweep_geometry(fn == "wavefront_affine", m, n, args[3])
+        affine = fn == "wavefront_affine"
+        width, grid = sweep_geometry(affine, m, n, args[3],
+                                     codes=preds(args))
         b_ms, by = bound(fn, args, sm_clock_mhz)
+        device = ""
+        if preds(args):
+            dev_ms = device_ms(lambda: launcher(fn)(*args),
+                               "band_affine_kernel" if affine
+                               else "band_kernel")
+            device = (f" device_ms={dev_ms:.4f} device_share="
+                      f"{b_ms / dev_ms:.3f}" if dev_ms
+                      else " device_ms=not measured")
         print(f"phase4 {tag} {name} {' '.join(map(str, call))} {m}x{n} "
               f"width={width} grid={grid} kernel_ms={ms:.3f} "
               f"gcups={m * n / ms / 1e6:.2f} bound_ms={b_ms:.3f} "
-              f"bound_by={by} share={b_ms / ms:.3f}", flush=True)
+              f"bound_by={by} share={b_ms / ms:.3f}{device}", flush=True)
 
     def run(name, tag, call, fn, args, report=False):
         label = f"phase4 {tag} {name} {' '.join(map(str, call))} " \
@@ -2200,7 +2373,7 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         errors[name] = max(errors.get(name, 0), err)
         if report:
             timings[name] = (ms, plain_ms, *bound(fn, args, sm_clock_mhz))
-        if fn.startswith("wavefront") and not preds(args):
+        if fn.startswith("wavefront"):
             geometry(tag, name, call, fn, args, ms)
         if fn.startswith("walk"):
             walk_bound(label, fn, args, ms)
@@ -2303,6 +2476,22 @@ def phase4(kept, timings, errors, sm_clock_mhz):
         kept_of(a_fulltb, "walk_affine")[0], report=True)
     run("walk_affine", "K6", mm, "walk_affine", k6_mm)
     levels("lastcols_affine", "K5L", mm, k5l_mm)
+    # K2 and K5p alone at the `auto` cap (2,048 x 2,048) and at the batch
+    # calls' ~256 bp, local (a generator of its own)
+    rng = np.random.default_rng(SEED + 13)
+    for size in (2048, 256):
+        qb, sb = related_pair(rng, size)
+        sb = (sb + related_pair(rng, size)[0])[:size]
+        q, s = (torch.frombuffer(bytearray(x), dtype=torch.uint8).cuda()
+                for x in (qb, sb))
+        for scoring in (LinearScoring(), AffineScoring(*AFFINE)):
+            affine = isinstance(scoring, AffineScoring)
+            args = ((_build.library(), q, s, Mode.LOCAL, scoring, True)
+                    + ((False, False) if affine else ()))
+            run("wavefront_affine_preds" if affine else "wavefront_preds",
+                "K5p" if affine else "K2",
+                ("alone", size, "local", type(scoring).__name__),
+                "wavefront_affine" if affine else "wavefront", args)
 
     a_score_100k = ("align_score", 100_000, "local", "AffineScoring")
     alone("wavefront_affine_score", "K5", a_score_100k, "wavefront_affine",
@@ -2403,6 +2592,7 @@ def main() -> int:
     # its own generator: the later phases' seeded pairs stay as they were
     phase2_walks(np.random.default_rng(SEED + 10), errors)
     phase2_sweeps(errors)
+    phase2_code_sweeps(errors)
     phase2_levels(errors)
     phase2_band(rng, errors)
     phase2_collective(rng, errors)

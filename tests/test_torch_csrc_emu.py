@@ -871,25 +871,35 @@ def test_band_collective_kernel_empty_last_rank(emu_collective, k, m, n,
         assert torch.equal(got[key], want[key]), key
 
 
-# --- K1 / K5, the single-pair score sweeps, on the warp strip cores at
-# each strip width (csrc/band.cu anyseq_sweep, csrc/band_affine.cu
-# anyseq_sweep_affine) ---
+# --- K1 / K5, the single-pair score sweeps, and K2 / K5p, the same
+# sweeps with codes, on the warp strip cores at each strip width
+# (csrc/band.cu anyseq_sweep, csrc/band_affine.cu anyseq_sweep_affine) ---
 
 _SWEEP_WIDTHS = ([("K1", w) for w in band.WIDTHS]
-                 + [("K5", w) for w in band.AFFINE_WIDTHS])
+                 + [("K5", w) for w in band.AFFINE_WIDTHS]
+                 + [("K2", w) for w in band.CODE_WIDTHS]
+                 + [("K5p", w) for w in band.AFFINE_CODE_WIDTHS])
+_AFFINE = {"K5", "K5p"}
+_CODES = {"K2", "K5p"}
 
 
-def _check_sweep(lib, q, s, mode, sc, width, start_gap=False, grid=0):
-    """K1 / K5 at `width` columns a lane against the plain version (K5
-    with the E last column), every output bit for bit."""
+def _check_sweep(lib, q, s, mode, sc, width, start_gap=False, grid=0,
+                 preds=False):
+    """K1 / K5 (`preds`: K2 / K5p) at `width` columns a lane against the
+    plain version (affine with the E last column), every output bit for
+    bit."""
     if isinstance(sc, AffineScoring):
-        got = wavefront.launch_affine(lib, q, s, mode, sc, False, start_gap,
+        got = wavefront.launch_affine(lib, q, s, mode, sc, preds, start_gap,
                                       True, width=width, grid=grid)
         want = wavefront.plain_affine(q, s, mode, sc, start_gap, True)
+        if preds:
+            want["preds"] = wavefront.plain_affine_preds(q, s, mode,
+                                                         sc)["preds"]
     else:
-        got = wavefront.launch(lib, q, s, mode, sc, False, width=width,
+        got = wavefront.launch(lib, q, s, mode, sc, preds, width=width,
                                grid=grid)
-        want = wavefront.plain(q, s, mode, sc)
+        want = (wavefront.plain_preds if preds else wavefront.plain)(
+            q, s, mode, sc)
     assert got.keys() == want.keys()
     for k in want:
         assert torch.equal(got[k], want[k]), (k, width, start_gap, grid)
@@ -902,8 +912,9 @@ def _check_sweep(lib, q, s, mode, sc, width, start_gap=False, grid=0):
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
 @pytest.mark.parametrize("kernel,width", _SWEEP_WIDTHS)
 def test_sweep_kernel_widths(emu_card, emu_lib, kernel, width, mode, shape):
-    """K1 and K5 forced to each width they have, 3 modes (K5 at both
-    bench scorings, GLOBAL also under the Myers-Miller start_gap): one
+    """K1 and K5, and with codes K2 and K5p, forced to each width they
+    have, 3 modes (K5 and K5p at both bench scorings, K5's GLOBAL also
+    under the Myers-Miller start_gap): one
     column, fewer columns than a lane holds, one row, one column past a
     strip (rows past two 32-row chunks), two strips whose last is full
     (column n - 1 in the last lane's last column), and three ragged
@@ -919,11 +930,12 @@ def test_sweep_kernel_widths(emu_card, emu_lib, kernel, width, mode, shape):
     rng = np.random.default_rng(m * n + width)
     q, s = _seq(rng, m), _seq(rng, n)
     grids = [0, 1] if shape == "three strips" else [0]
-    for sc in ASC if kernel == "K5" else [SC]:
+    for sc in ASC if kernel in _AFFINE else [SC]:
         for start_gap in ([False, True] if kernel == "K5"
                           and mode is Mode.GLOBAL else [False]):
             for grid in grids:
-                _check_sweep(emu_lib, q, s, mode, sc, width, start_gap, grid)
+                _check_sweep(emu_lib, q, s, mode, sc, width, start_gap, grid,
+                             preds=kernel in _CODES)
 
 
 def _tie_cases(width):
@@ -955,7 +967,8 @@ def _tie_cases(width):
 @pytest.mark.parametrize("kernel,width", _SWEEP_WIDTHS)
 def test_sweep_kernel_local_ties(emu_lib, kernel, width, case):
     """Equal LOCAL maxima planted inside one lane, across lanes and across
-    strips, at each width of K1 and K5: the first in row-major order."""
+    strips, at each width of K1 and K5 (and, codes on, K2 and K5p): the
+    first in row-major order."""
     plants, want = _tie_cases(width)[case]
     q, s = _planted([p for p in plants if p[1] is not None],
                     n=3 * 32 * width)
@@ -965,9 +978,10 @@ def test_sweep_kernel_local_ties(emu_lib, kernel, width, case):
                 bytearray(text), dtype=torch.uint8)
         else:              # a symbol of neither sequence on either side
             q[qi - len(text)] = q[qi + 1] = ord("N")
-    sc = (AffineScoring(1, -100, -100, -100) if kernel == "K5"
+    sc = (AffineScoring(1, -100, -100, -100) if kernel in _AFFINE
           else LinearScoring(1, -100, -100))
-    got = _check_sweep(emu_lib, q, s, Mode.LOCAL, sc, width)
+    got = _check_sweep(emu_lib, q, s, Mode.LOCAL, sc, width,
+                       preds=kernel in _CODES)
     assert got["best"].tolist() == [12, *want]
 
 
@@ -980,25 +994,41 @@ def test_sweep_kernel_affine_column0(emu_lib, width, sc, mode):
     column out of the lane that holds column n - 1 (one column, one past a
     strip) and the chain's carry E - go - ge where go + ge is 0 or
     -1."""
+    _affine_column0(emu_lib, width, sc, mode, preds=False)
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("sc", ASC_EDGES, ids=str)
+@pytest.mark.parametrize("width", band.AFFINE_CODE_WIDTHS)
+def test_sweep_kernel_affine_column0_codes(emu_lib, width, sc, mode):
+    """K5p likewise: also the PE bit of column 0, which E[i][-1] = NEG + go
+    - ge sets as the plain version does where ge or go is 0."""
+    _affine_column0(emu_lib, width, sc, mode, preds=True)
+
+
+def _affine_column0(lib, width, sc, mode, preds):
     rng = np.random.default_rng(width + 7)
     for m, n in ((30, 1), (30, 32 * width + 1), (70, 100)):
         q, s = _seq(rng, m), _seq(rng, n)
-        for start_gap in ([False, True] if mode is Mode.GLOBAL
+        for start_gap in ([False, True] if mode is Mode.GLOBAL and not preds
                           else [False]):
-            _check_sweep(emu_lib, q, s, mode, sc, width, start_gap)
+            _check_sweep(lib, q, s, mode, sc, width, start_gap, preds=preds)
 
 
 def test_sweep_kernel_refuses_other_widths(emu_lib):
-    """A width K1 or K5 does not have (K1 has no 4 columns a lane, which
-    K5 has): the launch is refused, and the wrapper raises."""
+    """A width K1, K2, K5 or K5p does not have (K1 has no 4 columns a
+    lane, which K5 has; K2 no 32, which K1 has), and K5p under start_gap:
+    the launch is refused, and the wrapper raises."""
     q = _seq(np.random.default_rng(0), 10)
-    for width in (12, 4):
+    for width, preds in ((12, False), (4, False), (32, True), (4, True)):
         with pytest.raises(RuntimeError, match="launch failed"):
-            wavefront.launch(emu_lib, q, q, Mode.LOCAL, SC, False,
+            wavefront.launch(emu_lib, q, q, Mode.LOCAL, SC, preds,
                              width=width)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        wavefront.launch_affine(emu_lib, q, q, Mode.LOCAL, ASC[0], False,
-                                False, False, width=32)
+    for width, preds, start_gap in ((32, False, False), (32, True, False),
+                                    (12, True, False), (8, True, True)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            wavefront.launch_affine(emu_lib, q, q, Mode.GLOBAL, ASC[0],
+                                    preds, start_gap, False, width=width)
 
 
 @pytest.mark.parametrize("kernel,sms,ctas,h,n,want", [
@@ -1026,22 +1056,82 @@ def test_sweep_kernel_refuses_other_widths(emu_lib):
     ("K5", 132, 1, 524_288, 1_000_000, 16),
     ("K5", 132, 4, 5, 100_000, 16),
     ("K5", 4, 4, 2000, 20_000, 16),
+    # K2 and K5p, by the level rule on their own step costs (K2 16 and 8
+    # columns a lane, ~450 + 46 cycles a column; K5p 16 one row a step,
+    # ~545 + 63, 8 and 4 two rows, ~950 + 100): K2 8 at every pair but a
+    # 5-row one, whose 16-column strips' shorter fill wins; K5p 4 where its
+    # fill, 47 steps a strip, stays short against the rows, 8 at 2,000 x
+    # 3,000, 16 at 5 rows
+    ("K2", 132, 4, 10_000, 10_000, 8),
+    ("K2", 132, 4, 2048, 2048, 8),
+    ("K2", 132, 4, 2000, 3000, 8),
+    ("K2", 132, 4, 256, 256, 8),
+    ("K2", 132, 4, 100_000, 200_000, 8),
+    ("K2", 4, 4, 2000, 20_000, 8),
+    ("K2", 132, 4, 5, 100_000, 16),
+    ("K5p", 132, 4, 10_000, 10_000, 4),
+    ("K5p", 132, 4, 2048, 2048, 4),
+    ("K5p", 132, 4, 2000, 3000, 8),
+    ("K5p", 132, 4, 256, 256, 4),
+    ("K5p", 132, 4, 100_000, 100_000, 4),
+    ("K5p", 132, 4, 5, 100_000, 16),
 ])
 def test_sweep_width_rule(emu_card, emu_lib, kernel, sms, ctas, h, n, want):
-    """anyseq_sweep_width and anyseq_sweep_affine_width (one rule,
-    band_sweep.cuh width_of) on emulated cards: the widest width whose
-    launch runs 2 warps an SM, else the narrowest whose fill (strips - 1)
-    x lag is at most half a strip's steps, else the widest; the grid
-    reported for the chosen width is that of grid_of."""
+    """anyseq_sweep_width and anyseq_sweep_affine_width on emulated cards:
+    K1 and K5 by band_sweep.cuh width_of (the widest width whose launch
+    runs 2 warps an SM, else the narrowest whose fill (strips - 1) x lag
+    is at most half a strip's steps, else the widest), K2 and K5p by
+    level_width on their own step costs (the least modelled time); the
+    grid reported for the chosen width is that of grid_of."""
     emu_card(sms, ctas)
-    width = (emu_lib.anyseq_sweep_affine_width if kernel == "K5"
+    affine, codes = kernel in _AFFINE, int(kernel in _CODES)
+    width = (emu_lib.anyseq_sweep_affine_width if affine
              else emu_lib.anyseq_sweep_width)
-    grid = (emu_lib.anyseq_sweep_affine_grid if kernel == "K5"
+    grid = (emu_lib.anyseq_sweep_affine_grid if affine
             else emu_lib.anyseq_sweep_grid)
     for mode in Mode:
-        assert width(h, n, band.MODE_CODE[mode]) == want, mode
-        assert grid(h, n, band.MODE_CODE[mode], want) >= 1
-    assert grid(h, n, 0, 12) == -1
+        assert width(h, n, band.MODE_CODE[mode], codes) == want, mode
+        assert grid(h, n, band.MODE_CODE[mode], want, codes) >= 1
+    assert grid(h, n, 0, 12, codes) == -1
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+@pytest.mark.parametrize("kernel,width", [("K2", 8), ("K5p", 4)])
+def test_sweep_codes_walked_match_xla(emu_lib, kernel, width, mode):
+    """A ~200 x 300 pair (two or three strips): the emulated K2's (K5p's)
+    codes, walked by the emulated K3 (K6) from the sweep's end cell, give
+    the alignment of the JAX package's ``align_full_tb`` on XLA:CPU."""
+    import anyseq_tpu
+    from anyseq_tpu.core.types import AffineScoring as JaxAffine
+    from anyseq_tpu.core.types import LinearScoring as JaxLinear
+
+    rng = np.random.default_rng(13)
+    q, s = _seq(rng, 203), _seq(rng, 297)
+    m, n = q.shape[0], s.shape[0]
+    affine = kernel == "K5p"
+    sc = ASC[0] if affine else SC
+    outs = (wavefront.launch_affine(emu_lib, q, s, mode, sc, True, False,
+                                    False, width=width) if affine
+            else wavefront.launch(emu_lib, q, s, mode, sc, True,
+                                  width=width))
+    end = linmem.extract_end(outs, m, n, mode)
+    args = (outs["preds"][None], q[None], s[None], end[None, 1:], mode)
+    if affine:
+        no_gap = torch.zeros(1, dtype=torch.bool)
+        out_q, out_s, start = walk.launch_affine(emu_lib, *args, no_gap,
+                                                 no_gap)
+        ref = anyseq_tpu.align_full_tb(q.numpy().tobytes(),
+                                       s.numpy().tobytes(), mode.value,
+                                       JaxAffine(2, -1, -3, -1))
+    else:
+        out_q, out_s, start = walk.launch(emu_lib, *args)
+        ref = anyseq_tpu.align_full_tb(q.numpy().tobytes(),
+                                       s.numpy().tobytes(), mode.value,
+                                       JaxLinear(2, -1, -1))
+    got = (int(end[0]), bytes(out_q[0].numpy()), bytes(out_s[0].numpy()),
+           tuple(start[0].tolist()))
+    assert got == (ref.score, ref.query_aligned, ref.subject_aligned,
+                   tuple(ref.start))
 
 
 # --- K4 / K5L, the level sweeps, on the warp strip cores at each width

@@ -185,12 +185,12 @@ def test_every_kernel_has_a_launch_count():
         "wavefront_affine_score", "wavefront_affine_preds",
         "lastcols_affine", "walk_affine", "swarm_score", "swarm_preds",
         "band", "band_affine", "band_collective", "band_collective_affine"}
-    # one launching entry a source and K1's and K5's on the warp strip
-    # cores, the peer-access switch of the collective, the grid queries of
-    # K8/K10 and of their affine modes, the affine strip width, the width
-    # and grid queries of K1, K5, K4 and K5L, and K7's plan (which launch
-    # nothing)
-    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 15 == 24
+    # one launching entry a source and K1's / K2's and K5's / K5p's on the
+    # warp strip cores, the peer-access switch of the collective, the grid
+    # queries of K8/K10 and of their affine modes, the affine strip width,
+    # the width and grid queries of K1 / K2, K5 / K5p, K4 and K5L, and K7's
+    # plan (which launch nothing)
+    assert len(_build.SIGNATURES) == len(_build.SOURCES) + 15 == 22
     assert {"anyseq_band_grid", "anyseq_band_affine_grid",
             "anyseq_band_affine_strip", "anyseq_sweep", "anyseq_sweep_affine",
             "anyseq_sweep_width", "anyseq_sweep_affine_width",

@@ -126,13 +126,15 @@ def equal_outputs(lines, key_of, tool: str) -> bool:
 
 
 def in_turns(script: str, root: str, parent: str, reps: int, key_of,
-             tool: str):
-    """`script --tree` of the older tree `parent` and of `root`, each a
-    process of its own, in turns: older, this, this, older. Their lines,
-    each marked ``which`` (older / this); None where outputs differ."""
+             tool: str, extra=()):
+    """`script --tree` (and the arguments `extra`) of the older tree
+    `parent` and of `root`, each a process of its own, in turns: older,
+    this, this, older. Their lines, each marked ``which`` (older / this);
+    None where outputs differ."""
     lines = []
     for tree in (parent, root, root, parent):
-        lines += child(script, ["--tree", tree, "--reps", str(reps)])
+        lines += child(script, ["--tree", tree, "--reps", str(reps),
+                                *extra])
     if not equal_outputs(lines, key_of, tool):
         return None
     for x in lines:

@@ -38,6 +38,21 @@ sources, then holds K1 and K5 at every width to their plain versions
 ``--sass NAMES [--sass-dir DIR]`` writes the SASS of the K1 / K5 kernels
 whose mangled names hold one of NAMES (comma-separated) to DIR (default
 ``anyseq_tpu_torch/_build/sass``). The options combine in one call.
+
+    python3 tools/k1_ab.py --preds [--check] [--sweep] [--parent DIR]
+
+does the same for K2 and K5p, the sweeps with codes: ``--check`` holds
+them at every width to their plain versions (``chip_smoke.py``'s ptxas
+report and ``phase2_code_sweeps``); ``--sweep`` times this tree's K2 / K5p
+forced to each width they have; ``--parent`` times each tree's K2 / K5p
+at its own widths in turns, device times (torch.profiler) and calls timed
+with CUDA events, at the 10k full tracebacks (K2 local, K5p global), at
+2,048 x 2,048 (``align``'s ``auto`` cap of 2^22 cells) and at 256 x 256,
+local (and at ``chip_smoke.py``'s phase 2 shape, 2,000 x 3,000); then
+the walls of ``align_full_tb`` 10k (local, global affine),
+``align`` auto at 2,048 x 2,048 (local, linear and affine) and affine
+``align_batch`` of 1,000 ~256 bp local pairs, each cold then warm, and
+one profile of that batch: its device time, and K5p's and K6's in it.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ import numpy as np
 
 from _ab import (child, emit, equal_outputs, grouped, import_tree, in_turns,
                  smi, stats)
+from _ab import timed_runs as profiled_runs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 2024
@@ -59,6 +75,16 @@ TALL = (524_288, 1_000_000)       # the tallest one-piece sweep, x 1 M
 GENOME_BP = 1_000_000
 ECOLI_BP = 4_600_000
 AFFINE = (2, -1, -3, -1)
+# --preds: (name, m, n, mode, affine) of the K2 / K5p sweeps
+CODE_SHAPES = (("full_tb 10k", 10_000, 10_000, "local", False),
+               ("full_tb 10k", 10_000, 10_000, "global", True),
+               ("auto cap 2048", 2048, 2048, "local", False),
+               ("auto cap 2048", 2048, 2048, "local", True),
+               ("chip_smoke phase 2", 2000, 3000, "local", False),
+               ("chip_smoke phase 2", 2000, 3000, "local", True),
+               ("batch pair 256", 256, 256, "local", False),
+               ("batch pair 256", 256, 256, "local", True))
+BATCH_PAIRS = 1000
 
 
 def checksum(out) -> list:
@@ -172,7 +198,7 @@ def run_widths(tree: str, reps: int) -> None:
         affine = kernel_name(scoring) == "K5"
         m, n = q.numel(), s.numel()
         pre = "anyseq_sweep_affine" if affine else "anyseq_sweep"
-        rule = getattr(lib, pre + "_width")(m, n, MODE_CODE[mode])
+        rule = getattr(lib, pre + "_width")(m, n, MODE_CODE[mode], 0)
         widths = band.AFFINE_WIDTHS if affine else band.WIDTHS
         if m >= TALL[0]:
             # the boundary columns take (strips - 1) x m ints: the widest two
@@ -182,7 +208,8 @@ def run_widths(tree: str, reps: int) -> None:
                                               col_e, width=w), reps)
             emit(tree=tree, kernel=kernel_name(scoring), shape=name, m=m,
                  n=n, width=w, rule=rule,
-                 grid=getattr(lib, pre + "_grid")(m, n, MODE_CODE[mode], w),
+                 grid=getattr(lib, pre + "_grid")(m, n, MODE_CODE[mode], w,
+                                                  0),
                  runs_ms=runs, check=check)
 
 
@@ -304,6 +331,146 @@ def public_calls(tree: str) -> None:
         emit(tree=tree, call=name, walls_s=walls, check=out)
 
 
+def code_shapes(dev):
+    """(name, q, s, mode, scoring) of the K2 / K5p sweeps of CODE_SHAPES:
+    seeded related pairs, the subject cut or filled to n."""
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.core.types import Mode, as_tensor
+    from chip_smoke import related_pair
+
+    rng = np.random.default_rng(SEED + 20)
+    out = []
+    for name, m, n, mode, affine in CODE_SHAPES:
+        qb, sb = related_pair(rng, m)
+        sb = (sb + related_pair(rng, n)[0])[:n]
+        out.append((f"{name} {mode}", as_tensor(qb, dev), as_tensor(sb, dev),
+                    Mode.parse(mode), pt.AffineScoring(*AFFINE) if affine
+                    else pt.LinearScoring()))
+    return out
+
+
+def code_kernel(lib, affine: bool) -> str:
+    """The name K2's (K5p's) kernel has in the profiler in either tree:
+    the warp strip cores' band kernels, or before them the CTA cores'."""
+    if hasattr(lib, "anyseq_wavefront"):
+        return "wavefront_affine_kernel" if affine else "wavefront_kernel"
+    return "band_affine_kernel" if affine else "band_kernel"
+
+
+def code_fn(lib, q, s, mode, scoring, **kw):
+    from anyseq_tpu_torch.kernels import wavefront
+
+    if hasattr(scoring, "gap_open"):
+        return lambda: wavefront.launch_affine(lib, q, s, mode, scoring,
+                                               True, False, False, **kw)
+    return lambda: wavefront.launch(lib, q, s, mode, scoring, True, **kw)
+
+
+def run_code_widths(tree: str, reps: int) -> None:
+    """This tree's K2 and K5p at every width they have, at CODE_SHAPES."""
+    lib = import_tree(tree)
+    from anyseq_tpu_torch.kernels import band
+    from anyseq_tpu_torch.kernels._sweep import MODE_CODE
+
+    for name, q, s, mode, scoring in code_shapes("cuda"):
+        affine = hasattr(scoring, "gap_open")
+        m, n = q.numel(), s.numel()
+        pre = "anyseq_sweep_affine" if affine else "anyseq_sweep"
+        rule = getattr(lib, pre + "_width")(m, n, MODE_CODE[mode], 1)
+        for w in band.AFFINE_CODE_WIDTHS if affine else band.CODE_WIDTHS:
+            runs, calls, check = profiled_runs(
+                code_fn(lib, q, s, mode, scoring, width=w), reps,
+                code_kernel(lib, affine), checksum, 4)
+            emit(tree=tree, kernel="K5p" if affine else "K2", shape=name,
+                 m=m, n=n, width=w, rule=rule,
+                 grid=getattr(lib, pre + "_grid")(m, n, MODE_CODE[mode], w,
+                                                  1),
+                 runs_ms=runs, call_ms=calls, check=check)
+
+
+def run_code_tree(tree: str, reps: int) -> None:
+    """One tree's K2 / K5p at its own widths, and the public calls that
+    run them."""
+    lib = import_tree(tree)
+    for name, q, s, mode, scoring in code_shapes("cuda"):
+        affine = hasattr(scoring, "gap_open")
+        runs, calls, check = profiled_runs(
+            code_fn(lib, q, s, mode, scoring), reps,
+            code_kernel(lib, affine), checksum, 4)
+        emit(tree=tree, kernel="K5p" if affine else "K2", shape=name,
+             m=q.numel(), n=s.numel(), runs_ms=runs, call_ms=calls,
+             check=check)
+    code_calls(tree, lib)
+
+
+def code_calls(tree: str, lib) -> None:
+    """The public calls that run K2 / K5p, each cold then warm (host
+    walls to the result), and one profile of the affine batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import anyseq_tpu_torch as pt
+    from chip_smoke import related_pair
+
+    sc, asc = pt.LinearScoring(), pt.AffineScoring(*AFFINE)
+    rng = np.random.default_rng(SEED + 21)
+    q10, s10 = related_pair(rng, 10_000)
+    q2k, s2k = related_pair(rng, 2048)
+    s2k = (s2k + related_pair(rng, 2048)[0])[:2048]
+    pairs = [related_pair(rng, 256) for _ in range(BATCH_PAIRS)]
+    qs, ss = [p[0] for p in pairs], [p[1] for p in pairs]
+
+    def aligned(fn, *args):
+        def call():
+            a = fn(*args, device="cuda")
+            return [a.score, *a.start]
+        return call
+
+    def batch():
+        out = pt.align_batch(qs, ss, "local", asc, device="cuda")
+        return [sum(a.score for a in out), sum(sum(a.start) for a in out)]
+
+    calls = (
+        ("align_full_tb 10k local", aligned(pt.align_full_tb, q10, s10,
+                                            "local", sc)),
+        ("align_full_tb 10k global affine",
+         aligned(pt.align_full_tb, q10, s10, "global", asc)),
+        ("align auto 2048 local", aligned(pt.align, q2k, s2k, "local", sc)),
+        ("align auto 2048 local affine",
+         aligned(pt.align, q2k, s2k, "local", asc)),
+        (f"align_batch {BATCH_PAIRS} ~256 bp local affine", batch),
+    )
+    for name, fn in calls:
+        walls, out = [], None
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t0, 6))
+        emit(tree=tree, call=name, walls_s=walls, check=out)
+    # where the affine batch's device time goes (the profiler's own cost
+    # lengthens the wall it reports beside)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = batch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def busy(kernel=""):
+        sel = [e for e in events if kernel in e.name]
+        return (round(sum(e.time_range.end - e.time_range.start
+                          for e in sel) / 1e3, 4), len(sel))
+
+    emit(tree=tree, call=f"align_batch {BATCH_PAIRS} ~256 bp local affine "
+         "profile", profiled_wall_ms=round(wall * 1e3, 3),
+         busy_ms=busy()[0], k5p=busy(code_kernel(lib, True)),
+         k6=busy("walk_affine_kernel"), check=out)
+
+
 def key_of(x) -> tuple:
     return (x.get("kernel"), x.get("shape"), x.get("m"), x.get("n"),
             x.get("call"))
@@ -320,6 +487,12 @@ def summary(lines, groups) -> None:
         if "walls_s" in sel[0]:
             walls = [x["walls_s"] for x in sel]
             print(f"{label} {tag}: walls_s {walls}", flush=True)
+            continue
+        if "busy_ms" in sel[0]:
+            print(f"{label} {tag}: " + "; ".join(
+                f"profiled_wall_ms {x['profiled_wall_ms']} busy_ms "
+                f"{x['busy_ms']} k5p (ms, launches) {x['k5p']} k6 {x['k6']}"
+                for x in sel), flush=True)
             continue
         extra = (f" grid={sel[0]['grid']} rule={sel[0]['rule']}"
                  if "grid" in sel[0] else "")
@@ -365,6 +538,8 @@ def main() -> int:
     p.add_argument("--sass-dir", default=os.path.join(
         ROOT, "anyseq_tpu_torch", "_build", "sass"))
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--preds", action="store_true",
+                   help="K2 / K5p, the sweeps with codes")
     # one process of a plan: a tree's run (--tree), or this tree at every
     # width (--widths)
     p.add_argument("--tree")
@@ -372,30 +547,32 @@ def main() -> int:
     a = p.parse_args()
     sys.path.insert(0, ROOT)
     if a.widths:
-        run_widths(ROOT, a.reps)
+        (run_code_widths if a.preds else run_widths)(ROOT, a.reps)
         return 0
     if a.tree:
-        run_tree(os.path.abspath(a.tree), a.reps)
+        (run_code_tree if a.preds else run_tree)(os.path.abspath(a.tree),
+                                                 a.reps)
         return 0
     print(smi("name,power.limit"), flush=True)
     if a.sass:
         sass(a.sass, a.sass_dir)
+    extra = ["--preds"] if a.preds else []
     if a.check:
         import chip_smoke as cs
 
         cs.build_report()()
         errors: dict = {}
-        cs.phase2_sweeps(errors)
-        print(f"check: K1 and K5 at every width equal to their plain "
-              f"versions {errors}", flush=True)
+        (cs.phase2_code_sweeps if a.preds else cs.phase2_sweeps)(errors)
+        print(f"check: {'K2 and K5p' if a.preds else 'K1 and K5'} at every "
+              f"width equal to their plain versions {errors}", flush=True)
     if a.sweep:
-        lines = child(__file__, ["--widths", "--reps", str(a.reps)])
+        lines = child(__file__, ["--widths", "--reps", str(a.reps), *extra])
         if not equal_outputs(lines, key_of, "k1_ab"):
             return 1
         summary(lines, ("width",))
     if a.parent:
         lines = in_turns(__file__, ROOT, os.path.abspath(a.parent), a.reps,
-                         key_of, "k1_ab")
+                         key_of, "k1_ab", extra)
         if lines is None:
             return 1
         summary(lines, ("which",))

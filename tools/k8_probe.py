@@ -4,8 +4,8 @@
 
     python3 tools/k8_probe.py
 
-Prints ptxas's registers and spills for K8 and for K1 / K5, whose strip
-sweep K8 shares; then times a 1 Mbp global linear score of three pairs
+Prints ptxas's registers and spills for K8 and for K1 / K2 and K5 / K5p,
+whose strip sweep K8 shares (one source each); then times a 1 Mbp global linear score of three pairs
 as one K1 sweep and as a chain of K8 bands (each band's device time
 too), in turns (chain, K1, K1, chain) with the SM clock, power and
 temperature after each, and holds the two equal.
@@ -48,8 +48,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("band.cu", "band_affine.cu", "wavefront.cu",
-                     "wavefront_affine.cu"):
+        for name in ("band.cu", "band_affine.cu"):
             out = subprocess.run(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                  "-o", os.path.join(tmp, name + ".o"),
