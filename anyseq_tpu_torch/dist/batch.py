@@ -7,12 +7,15 @@ runs the single-device port's own route on its slice -- K7 for score and
 align batches, K4 / K5L for Hirschberg and Myers-Miller levels, the
 terminal pred sweeps with K3 / K6 for terminal stripes -- and the results
 come back in input order on the device of the inputs. The problems are
-independent: there is no communication.
+independent: there is no communication between slices.
 
 A slice's work is enqueued device after device from this one process;
 where a route reads a result back on the host (the bucketing of
 ``align_scores_batch``, a level's split rows), that device finishes before
-the next one starts.
+the next one starts. Over a mesh of several processes each process runs
+only its own devices' slices, and every process then gathers every
+slice's results (``dist/process.py``: the port's ``fetch``), so that each
+holds the whole batch in input order.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from anyseq_tpu_torch.core.types import LinearScoring, Mode, check_scoring
+from anyseq_tpu_torch.dist import process
 from anyseq_tpu_torch.dist.mesh import Mesh
 from anyseq_tpu_torch.engine import batch as _batch
 
@@ -38,29 +42,46 @@ def on(device):
 
 
 def slices(B: int, mesh: Mesh):
-    """(device, lo, hi) of each non-empty slice of a batch of B: the
-    devices in order, ceil(B / devices) problems each."""
+    """(device, lo, hi) of each non-empty slice of a batch of B that this
+    process runs: the devices in order, ceil(B / devices) problems each;
+    another process's devices' slices are left out."""
     devices = mesh.device_list()
     per = max(1, -(-B // len(devices)))
     return [(d, lo, min(lo + per, B))
-            for d, lo in zip(devices, range(0, B, per))]
+            for d, o, lo in zip(devices, mesh.owner_list(), range(0, B, per))
+            if o == process.index()]
 
 
-def _map(fn, mesh: Mesh, *arrays, host=()):
-    """fn on each device's slice of `arrays` (split along dim 0 and moved
-    to the device), then of `host` (split, left where they are: lengths
-    that the level sweeps read on the host): the list of the slices'
-    outputs, in order."""
+def _join(parts, mesh: Mesh, home, dims=None):
+    """The outputs of this process's slices (each a dict of tensors)
+    joined along dim 0 (along ``dims[name]`` where given) on `home`, in
+    input order; over several processes, every process's."""
+    dims = dims or {}
+    out = {k: torch.cat([p[k].to(home) for p in parts], dims.get(k, 0))
+           for k in parts[0]} if parts else None
+    if not mesh.spans_processes:
+        return out
+    # process.gather joins along dim 0
+    got = process.gather(None if out is None else {
+        k: t.movedim(dims.get(k, 0), 0) for k, t in out.items()})
+    return {k: t.to(home).movedim(0, dims.get(k, 0)) for k, t in got.items()}
+
+
+def _map(fn, mesh: Mesh, *arrays, host=(), dims=None):
+    """fn on each of this process's slices of `arrays` (split along dim 0
+    and moved to the device), then of `host` (split, left where they are:
+    lengths that the level sweeps read on the host): the slices' outputs
+    joined in input order (:func:`_join`), in a dict by fn's keys where fn
+    returns a dict, else by output position (0, 1, ...); ``dims`` maps a
+    key to the dimension its batch lies along, where not 0."""
     out = []
     for dev, lo, hi in slices(arrays[0].shape[0], mesh):
         with on(dev):
             out.append(fn(*(a[lo:hi].to(dev) for a in arrays),
                           *(h[lo:hi] for h in host)))
-    return out
-
-
-def _cat(parts, home, dim=0):
-    return torch.cat([p.to(home) for p in parts], dim)
+    as_dict = [p if isinstance(p, dict) else dict(enumerate(
+        (p,) if isinstance(p, torch.Tensor) else p)) for p in out]
+    return _join(as_dict, mesh, arrays[0].device, dims)
 
 
 def last_cols_batch_sharded(q, s, ms, ns, sc: LinearScoring, mesh: Mesh):
@@ -68,9 +89,8 @@ def last_cols_batch_sharded(q, s, ms, ns, sc: LinearScoring, mesh: Mesh):
     columns of B GLOBAL problems, on the inputs' device."""
     from anyseq_tpu_torch.kernels import lastcols
 
-    parts = _map(lambda *a: lastcols.last_cols(*a, sc), mesh, q, s,
-                 host=(ms, ns))
-    return _cat(parts, q.device)
+    return _map(lambda *a: lastcols.last_cols(*a, sc), mesh, q, s,
+                host=(ms, ns))[0]
 
 
 def last_cols_batch_affine_sharded(q, s, ms, ns, sc, sgaps, mesh: Mesh):
@@ -78,45 +98,41 @@ def last_cols_batch_affine_sharded(q, s, ms, ns, sc, sgaps, mesh: Mesh):
     H and E last columns of the Myers-Miller levels."""
     from anyseq_tpu_torch.kernels import lastcols
 
-    parts = _map(lambda q_, s_, g_, m_, n_: lastcols.last_cols_affine(
-        q_, s_, m_, n_, sc, g_), mesh, q, s, sgaps, host=(ms, ns))
-    return tuple(_cat(p, q.device) for p in zip(*parts))
+    return tuple(_map(lambda q_, s_, g_, m_, n_: lastcols.last_cols_affine(
+        q_, s_, m_, n_, sc, g_), mesh, q, s, sgaps, host=(ms, ns)).values())
 
 
 def preds_batch_sharded(q, s, ms, ns, sc: LinearScoring, mesh: Mesh):
     """``engine.batch.preds_batch`` over the mesh: ((B, M, ceil(N/16))
     packed codes, (M, B) last columns)."""
-    parts = _map(lambda *a: _batch.preds_batch(*a, sc), mesh, q, s, ms, ns)
-    words, cols = zip(*parts)
-    return _cat(words, q.device), _cat(cols, q.device, 1)
+    return tuple(_map(lambda *a: _batch.preds_batch(*a, sc), mesh, q, s, ms,
+                      ns, dims={1: 1}).values())
 
 
 def preds_batch_affine_sharded(q, s, ms, ns, sc, sgaps, mesh: Mesh):
     """``engine.batch.preds_batch_affine`` over the mesh (terminal
     Myers-Miller stripes): ((B, M, ceil(N/8)) codes, (M, B) H and E last
     columns)."""
-    parts = _map(lambda q_, s_, m_, n_, g_: _batch.preds_batch_affine(
-        q_, s_, m_, n_, sc, g_), mesh, q, s, ms, ns, sgaps)
-    words, cols, cols_e = zip(*parts)
-    return (_cat(words, q.device), _cat(cols, q.device, 1),
-            _cat(cols_e, q.device, 1))
+    return tuple(_map(lambda q_, s_, m_, n_, g_: _batch.preds_batch_affine(
+        q_, s_, m_, n_, sc, g_), mesh, q, s, ms, ns, sgaps,
+        dims={1: 1, 2: 1}).values())
 
 
 def preds_walk_batch_sharded(q, s, ms, ns, sc: LinearScoring, mesh: Mesh):
     """``engine.batch.preds_walk_batch`` over the mesh (the terminal
     stripes of Hirschberg: pred sweep, then K3): (out_q, out_s, scores)."""
-    parts = _map(lambda *a: _batch.preds_walk_batch(*a, sc), mesh, q, s, ms,
-                 ns)
-    return tuple(_cat(p, q.device) for p in zip(*parts))
+    return tuple(_map(lambda *a: _batch.preds_walk_batch(*a, sc), mesh, q, s,
+                      ms, ns).values())
 
 
 def preds_walk_batch_affine_sharded(q, s, ms, ns, sc, sgaps, egaps,
                                     mesh: Mesh):
     """``engine.batch.preds_walk_batch_affine`` over the mesh (terminal
     Myers-Miller stripes: pred sweep, then K6)."""
-    parts = _map(lambda q_, s_, m_, n_, g_, e_: _batch.preds_walk_batch_affine(
-        q_, s_, m_, n_, sc, g_, e_), mesh, q, s, ms, ns, sgaps, egaps)
-    return tuple(_cat(p, q.device) for p in zip(*parts))
+    return tuple(_map(
+        lambda q_, s_, m_, n_, g_, e_: _batch.preds_walk_batch_affine(
+            q_, s_, m_, n_, sc, g_, e_), mesh, q, s, ms, ns, sgaps,
+        egaps).values())
 
 
 def preds_batch_full_sharded(q, s, ms, ns, mode: Mode, sc: LinearScoring,
@@ -127,10 +143,9 @@ def preds_batch_full_sharded(q, s, ms, ns, mode: Mode, sc: LinearScoring,
     from anyseq_tpu_torch.kernels import swarm
 
     mode = Mode.parse(mode)
-    parts = _map(lambda *a: swarm.score_pairs_swarm(*a, mode, sc,
-                                                    emit_preds=True),
-                 mesh, q, s, ms, ns)
-    return {k: _cat([p[k] for p in parts], q.device) for k in parts[0]}
+    return _map(lambda *a: swarm.score_pairs_swarm(*a, mode, sc,
+                                                   emit_preds=True),
+                mesh, q, s, ms, ns)
 
 
 def _pair_slices(queries, subjects, mesh: Mesh):
@@ -145,28 +160,33 @@ def align_scores_batch_sharded(queries, subjects, mode="global",
                                device="cuda") -> np.ndarray:
     """``engine.batch.align_scores_batch`` with the pairs split over the
     mesh's devices in order, each slice scored by K7 on its device;
-    np.int64 scores in input order. Without a mesh, the single-device call
-    on `device`. ``batch_size`` is accepted for the JAX package's
-    signature."""
+    np.int64 scores in input order (on every process of a mesh over
+    several). Without a mesh, the single-device call on `device`.
+    ``batch_size`` is accepted for the JAX package's signature."""
     del batch_size
     check_scoring(scoring)
     if mesh is None:
         return _batch.align_scores_batch(queries, subjects, mode, scoring,
                                          device=device)
-    out = np.zeros(len(queries), dtype=np.int64)
+    parts = []
     for dev, lo, hi in _pair_slices(queries, subjects, mesh):
         with on(dev):
-            out[lo:hi] = _batch.align_scores_batch(
-                queries[lo:hi], subjects[lo:hi], mode, scoring, device=dev)
-    return out
+            parts.append(_batch.align_scores_batch(
+                queries[lo:hi], subjects[lo:hi], mode, scoring, device=dev))
+    out = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    if mesh.spans_processes:
+        out = process.gather({"scores": torch.from_numpy(out)})["scores"]
+    return np.asarray(out)
 
 
 def align_batch_sharded(queries, subjects, mode, scoring, mesh: Mesh):
     """Linear-gap ``engine.batch.align_batch`` with the pairs split over
-    the mesh's devices in order (K7 with codes, then K3, on each)."""
+    the mesh's devices in order (K7 with codes, then K3, on each); the
+    list of every pair's Alignment on every process of a mesh over
+    several."""
     out = []
     for dev, lo, hi in _pair_slices(queries, subjects, mesh):
         with on(dev):
             out += _batch.align_batch(queries[lo:hi], subjects[lo:hi], mode,
                                       scoring, device=dev)
-    return out
+    return process.gather_objects(out) if mesh.spans_processes else out

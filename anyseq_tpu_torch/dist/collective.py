@@ -5,35 +5,48 @@ right boundary column to the next rank as it goes.
 The counterpart of the JAX package's ``dist/collective.py``
 (``score_pair_collective``, ``_stripe_bands``, ``score_pairs_collective``),
 where one persistent Pallas kernel a chip streams each 128-row chunk of its
-stripe's right edge to the right-hand chip with remote DMA. Here one
-process drives every rank, as ``shard_map`` does there:
+stripe's right edge to the right-hand chip with remote DMA. Here each
+process drives the ranks it owns, as ``shard_map`` does there:
 
 * rank k owns the columns [k * Nl, (k + 1) * Nl), Nl = ``ceil(n / K)``
-  rounded up to whole 1024-column strips (the TPU's window geometry is not
-  ported, ROADMAP item 13); ranks past the one that owns column n - 1 have
-  no columns and are not launched;
+  rounded up to whole 1024-column strips (the TPU's window geometry is
+  not ported); ranks past the one that owns column n - 1 have no columns
+  and are not launched;
 * rank k's stripe is a chain of bands (one band up to
   ``kernels.band.M_MAX`` query rows, else ``band.M_BAND``-row bands), each
   one K10 launch on the rank's device and its own stream. Its first strip
   reads its left column from a :class:`kernels.band.Halo` on its device,
   which the left rank's last strip writes 32 rows at a time (through peer
   access from another card) and raises one flag a band for; the corner of
-  band b > 0 is that halo's row i0 - 1, read on the device. The ranks'
-  launches are enqueued band by band in rank order, so no launch waits on
-  one enqueued after it, and ranks that share a card split its warps so
-  that all of them are resident at once;
+  band b > 0 is that halo's row i0 - 1, read on the device. A process's
+  ranks are enqueued band by band in rank order, so no launch waits on
+  one enqueued after it, and ranks of the process that share a card split
+  its warps so that all of them are resident at once;
+* at a process edge (rank k - 1 and rank k owned by different processes,
+  ``dist/process.py``) the column goes band by band through the host: rank
+  k - 1's last strip writes it into a staging :class:`~kernels.band.Halo`
+  of its own, a thread of its process waits for the band and sends it
+  (+ E, affine) from pinned memory, and rank k's process receives it,
+  fills rank k's halo and raises its flag on rank k's stream before it
+  enqueues rank k's band (bands of ``band.M_BAND`` rows at most, so that
+  processes on separate cards overlap). No kernel waits on a flag that
+  another process's work must raise;
 * rank 0 starts from the closed-form left column, every rank from the
   closed-form top row of its columns (affine: the NEG F row, and the
   Myers-Miller ``start_gap`` boundary), and each keeps its own bottom (and
   F) row from band to band;
 * LOCAL bests are shifted to whole-matrix cells and merged with
-  ``mesh.lex_best_merge``: ties go to the smallest i, then j.
+  ``mesh.lex_best_merge``: ties go to the smallest i, then j. Over several
+  processes every process gathers every rank's rows and bests and
+  receives the last column from its owner, so each returns the same
+  outputs.
 
 On CPU devices every rank runs the plain version of K10 in the same order.
 """
 from __future__ import annotations
 
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import torch
@@ -44,22 +57,30 @@ from anyseq_tpu_torch.core.types import (
     as_tensor,
     check_scoring,
 )
+from anyseq_tpu_torch.dist import process
 from anyseq_tpu_torch.dist.mesh import Mesh, lex_best_merge
 from anyseq_tpu_torch.engine import affine, linmem
 from anyseq_tpu_torch.kernels import _build, band
 
 _STREAMS: dict = {}
 _PEERS: set = set()
+_SWEEPS = [0]       # sweeps over several processes so far, for their tags
 
 
 @dataclass
 class Rank:
     """One rank of a sweep: its device, the stream its launches go to (a
-    CUDA device), and how many ranks of the sweep share its card."""
+    CUDA device of this process), how many ranks of the sweep share its
+    card, and the process that owns it."""
 
     device: torch.device
     stream: object = None
     share: int = 1
+    owner: int = 0
+
+    @property
+    def local(self) -> bool:
+        return self.owner == process.index()
 
 
 def _stream(device: torch.device, slot: int):
@@ -70,21 +91,28 @@ def _stream(device: torch.device, slot: int):
     return _STREAMS[key]
 
 
-def ranks_of(devices, slots=None, counts=None) -> list[Rank]:
-    """The ranks on `devices` (repeats allowed); `slots` names each one's
-    stream (default: its index), `counts` how many ranks running at once
-    use each device (default: those of `devices`)."""
+def ranks_of(devices, slots=None, counts=None, owners=None) -> list[Rank]:
+    """The ranks on `devices` (repeats allowed), owned by `owners`
+    (default: this process); `slots` names each one's stream (default: its
+    index), `counts` how many ranks of this process running at once use
+    each device (default: those of `devices` that it owns). Another
+    process's ranks get no stream: they are never touched here."""
     devices = [torch.device(d) for d in devices]
+    owners = [process.index()] * len(devices) if owners is None else owners
     slots = range(len(devices)) if slots is None else slots
-    counts = counts or {d: devices.count(d) for d in devices}
-    return [Rank(d, _stream(d, slot) if d.type == "cuda" else None, counts[d])
-            for d, slot in zip(devices, slots)]
+    me = process.index()
+    counts = counts or {d: sum(o == me for e, o in zip(devices, owners)
+                               if e == d) for d in devices}
+    return [Rank(d, _stream(d, slot) if d.type == "cuda" and o == me
+                 else None, counts[d], o)
+            for d, slot, o in zip(devices, slots, owners)]
 
 
-def _enable_peers(devices) -> None:
-    """Peer access from each rank's card to the next rank's, whose halo it
-    writes; raise where the cards cannot reach each other."""
-    for a, b in zip(devices, devices[1:]):
+def _enable_peers(pairs) -> None:
+    """Peer access from each (left, right) rank's card to the right one's,
+    whose halo it writes; raise where the cards cannot reach each
+    other."""
+    for a, b in pairs:
         if a == b or (a.index, b.index) in _PEERS:
             continue
         if not torch.cuda.can_device_access_peer(a, b):
@@ -132,16 +160,44 @@ def _top(mode: Mode, sc, j: int, start_gap: bool) -> int:
     return (j + 1) * sc.gap
 
 
+def _send(event, buf, dst: int, tag: int) -> None:
+    """A band's column to the next process, once its band has run."""
+    if event is not None:
+        event.synchronize()
+    process.send_band(buf, dst, tag)
+
+
+def _tag(sweep: int, k: int, b: int) -> int:
+    """The message tag of band b at the edge left of rank k (gloo tags are
+    non-negative int32; a sweep's tags recur after 2^14 sweeps, long after
+    its messages were received)."""
+    return ((sweep % (1 << 14)) << 17) | ((k % 64) << 11) | (b % 2048)
+
+
 def launch_pair(q, s, mode: Mode, sc, ranks: list[Rank],
-                band_rows: int | None = None, start_gap: bool = False):
+                band_rows: int | None = None, start_gap: bool = False,
+                processes: bool = False):
     """Enqueue the collective sweep of q against s (1-D uint8 tensors on
-    one home device) over `ranks`; returns a function that waits for it
-    and returns the outputs of ``linmem.score_rows`` on the home device
-    (affine: with ``last_col_e`` and ``last_row_f``)."""
+    one home device of this process) over `ranks`; returns a function that
+    waits for it and returns the outputs of ``linmem.score_rows`` on the
+    home device (affine: with ``last_col_e`` and ``last_row_f``).
+
+    ``processes``: the ranks are a ring of a mesh over several processes,
+    and every process makes this call (and the returned one) for the same
+    sweeps in the same order; each drives its own ranks, and each gets
+    the same outputs. A ring with a process edge hands its columns on in
+    bands of at most ``band_rows`` rows (default ``band.M_BAND``)."""
     is_affine = isinstance(sc, AffineScoring)
     m, n = int(q.shape[0]), int(s.shape[0])
+    _, Ka, _, _ = geometry(m, n, len(ranks))
+    edge = any(ranks[k].owner != ranks[k - 1].owner for k in range(1, Ka))
+    if band_rows is None and edge:
+        band_rows = band.M_BAND
     Nl, Ka, band_rows, bands = geometry(m, n, len(ranks), band_rows)
     ranks = ranks[:Ka]
+    sweep = _SWEEPS[0]
+    _SWEEPS[0] += processes
+    mine = [k for k, r in enumerate(ranks) if r.local]
     home = q.device
     cuda = home.type == "cuda"
     if is_affine:
@@ -149,12 +205,15 @@ def launch_pair(q, s, mode: Mode, sc, ranks: list[Rank],
     else:
         row0, rowf0 = linmem.top_row(mode, sc, n, home), None
     if cuda:
-        _enable_peers([r.device for r in ranks])
-        for r in ranks:
+        _enable_peers([(ranks[k - 1].device, ranks[k].device) for k in mine
+                       if k and ranks[k - 1].local])
+        for k in mine:
+            r = ranks[k]
             r.stream.wait_stream(torch.cuda.current_stream(home))
             r.stream.wait_stream(torch.cuda.current_stream(r.device))
-    st = []
-    for k, r in enumerate(ranks):
+    st: dict = {}
+    for k in mine:
+        r = ranks[k]
         j0 = k * Nl
         cols = slice(j0, min(j0 + Nl, n))
         if cuda:
@@ -163,24 +222,44 @@ def launch_pair(q, s, mode: Mode, sc, ranks: list[Rank],
                 if t is not None:
                     t.record_stream(r.stream)
         with _on(r):
+            left = ranks[k - 1] if k else None
             halo = (band.Halo(m, bands, is_affine, r.device,
-                              ranks[k - 1].device) if k else None)
-            st.append({"j0": j0, "q": q.to(r.device),
-                       "s": s[cols].to(r.device).contiguous(),
-                       "row": row0[cols].to(r.device).contiguous(),
-                       "rowf": (rowf0[cols].to(r.device).contiguous()
-                                if is_affine else None),
-                       "halo": halo, "cols": [], "cols_e": [], "bests": []})
-        if cuda and k:
+                              left.device if left.local else r.device)
+                    if k else None)
+            x = {"j0": j0, "q": q.to(r.device),
+                 "s": s[cols].to(r.device).contiguous(),
+                 "row": row0[cols].to(r.device).contiguous(),
+                 "rowf": (rowf0[cols].to(r.device).contiguous()
+                          if is_affine else None),
+                 "halo": halo, "cols": [], "cols_e": [], "bests": [],
+                 "recv": None, "send": None}
+            # the columns that cross a process edge, a band at a time, in
+            # host memory
+            if k and not left.local:
+                x["recv"] = (left.owner, halo.host_stage(cuda))
+            if k + 1 < Ka and not ranks[k + 1].local:
+                staging = band.Halo(m, bands, is_affine, r.device, r.device)
+                x["send"] = (ranks[k + 1].owner, staging.host_stage(cuda),
+                             staging, ThreadPoolExecutor(1))
+            st[k] = x
+        if cuda and k and left.local:
             for t in halo.tensors():
-                t.record_stream(ranks[k - 1].stream)
+                t.record_stream(left.stream)
+    sends = []
     for b in range(bands):
         i0 = b * band_rows
         h = min(band_rows, m - i0)
-        for k, r in enumerate(ranks):
-            x = st[k]
-            halo_out = st[k + 1]["halo"] if k + 1 < Ka else None
+        for k in mine:
+            r, x = ranks[k], st[k]
+            halo_out = (st[k + 1]["halo"] if k + 1 in st
+                        else x["send"][2] if x["send"] else None)
+            if x["recv"] is not None:
+                src, stage = x["recv"]
+                slot = x["halo"].slot(stage, i0, h)
+                process.recv_band(slot, src, _tag(sweep, k, b))
             with _on(r):
+                if x["recv"] is not None:
+                    x["halo"].fill(b, i0, slot)
                 corner = col = cole = None
                 if k == 0 and is_affine:
                     corner, col, cole = affine.left_col_affine(
@@ -193,6 +272,15 @@ def launch_pair(q, s, mode: Mode, sc, ranks: list[Rank],
                     x["q"][i0:i0 + h], x["s"], x["row"], corner, col, mode,
                     sc, x["halo"], halo_out, b, i0, rowf_in=x["rowf"],
                     cole_in=cole, share=r.share)
+                if x["send"] is not None:
+                    dst, stage, staging, thread = x["send"]
+                    slot = staging.slot(stage, i0, h)
+                    staging.read(i0, slot)
+                    event = torch.cuda.Event() if cuda else None
+                    if cuda:
+                        event.record()
+                    sends.append(thread.submit(_send, event, slot, dst,
+                                               _tag(sweep, k + 1, b)))
             x["row"] = outs["last_row"]
             if is_affine:
                 x["rowf"] = outs["last_row_f"]
@@ -203,29 +291,47 @@ def launch_pair(q, s, mode: Mode, sc, ranks: list[Rank],
             x["bests"].append((outs["best"], i0))
 
     def finish():
+        for sent in sends:
+            sent.result()
+        for x in st.values():
+            if x["send"] is not None:
+                x["send"][3].shutdown()
         if cuda:
-            for r in ranks:
-                for cur in (torch.cuda.current_stream(r.device),
+            for k in mine:
+                for cur in (torch.cuda.current_stream(ranks[k].device),
                             torch.cuda.current_stream(home)):
-                    cur.wait_stream(r.stream)
+                    cur.wait_stream(ranks[k].stream)
         bests = []
-        for x in st:
+        for x in st.values():
             for best, i0 in x["bests"]:
                 shift = torch.tensor([0, i0, x["j0"]], dtype=torch.int32,
                                      device=best.device)
                 bests.append((best + shift).to(home))
-        owner = st[-1]
-        res = {"last_row": torch.cat([x["row"].to(home) for x in st]),
-               "last_col": torch.cat(owner["cols"]).to(home),
-               "best": lex_best_merge(torch.stack(bests))}
-        if is_affine:
-            res["last_col_e"] = torch.cat(owner["cols_e"]).to(home)
-            res["last_row_f"] = torch.cat([x["rowf"].to(home) for x in st])
+        names = ("last_col", "last_col_e") if is_affine else ("last_col",)
+        last = st.get(Ka - 1)
+        cols = {} if last is None else {
+            name: torch.cat(last[key]).to(home)
+            for name, key in zip(names, ("cols", "cols_e"))}
+        mine_ = {"last_row": torch.cat([x["row"].to(home)
+                                        for x in st.values()]),
+                 "best": torch.stack(bests)} if st else None
+        if is_affine and st:
+            mine_["last_row_f"] = torch.cat([x["rowf"].to(home)
+                                             for x in st.values()])
+        if processes:
+            # every process's rows and bests (its ranks are contiguous, in
+            # rank order) and the last rank's columns, on every process
+            mine_ = process.gather(mine_)
+            cols = {name: process.broadcast_from(ranks[-1].owner,
+                                                 cols.get(name))
+                    for name in names}
+        res = {k: v.to(home) for k, v in {**mine_, **cols}.items()}
+        res["best"] = lex_best_merge(res["best"])
         if cuda:
             # the current streams (a copy across cards runs on the
             # source's) read the ranks' last tensors: keep their memory
             # from the ranks' streams until they have
-            for x in st:
+            for x in st.values():
                 for t in [x["row"], x["rowf"], *x["cols"], *x["cols_e"],
                           *(b for b, _ in x["bests"])]:
                     if t is not None:
@@ -250,21 +356,21 @@ def score_pair_collective(query, subject, mode, sc, mesh: Mesh,
                           start_gap: bool = False):
     """Score one pair over the devices of a 1-D mesh (see the module
     docstring). Returns the outputs of ``linmem.score_rows`` (affine: with
-    ``last_col_e`` and ``last_row_f``) on the mesh's first device, equal to
-    one single-device sweep bit for bit. ``band_rows`` forces the band
-    height (tests); ``start_gap`` is the affine GLOBAL Myers-Miller
-    boundary."""
+    ``last_col_e`` and ``last_row_f``) on the mesh's first device of this
+    process (``mesh.home``), equal to one single-device sweep bit for bit.
+    ``band_rows`` sets the band height (default: see :func:`launch_pair`);
+    ``start_gap`` is the affine GLOBAL Myers-Miller boundary."""
     mode, sc = _check(mode, sc, start_gap)
     if mesh.axis_names != (axis,):
         raise ValueError(f"the collective sweep needs a 1-D mesh over axis "
                          f"{axis!r}; dist.sharded.score_pair_sharded "
                          "flattens other meshes")
-    devices = mesh.device_list()
-    q, s = _as_seq(query, devices[0]), _as_seq(subject, devices[0])
+    q, s = _as_seq(query, mesh.home), _as_seq(subject, mesh.home)
     if q.shape[0] == 0 or s.shape[0] == 0:
         raise ValueError("empty sequences are not supported")
-    return launch_pair(q, s, mode, sc, ranks_of(devices), band_rows,
-                       start_gap)()
+    ranks = ranks_of(mesh.device_list(), owners=mesh.owner_list())
+    return launch_pair(q, s, mode, sc, ranks, band_rows, start_gap,
+                       mesh.spans_processes)()
 
 
 def score_pairs_collective(queries, subjects, mode, sc, mesh: Mesh,
@@ -280,21 +386,23 @@ def score_pairs_collective(queries, subjects, mode, sc, mesh: Mesh,
         raise ValueError(f"needs a 2-D mesh over ({axis_dp!r}, {axis_sp!r})")
     if len(queries) != len(subjects) or not len(queries):
         raise ValueError("need equal, non-zero numbers of sequences")
-    grid = mesh.devices
+    grid, owners = mesh.devices, mesh.owners
     if mesh.axis_names.index(axis_dp) != 0:
-        grid = grid.T
+        grid, owners = grid.T, owners.T
     DP, K = grid.shape
-    flat = list(grid.flat)
-    counts = {d: flat.count(d) for d in flat}
-    rings = [ranks_of(grid[r], range(r * K, (r + 1) * K), counts)
-             for r in range(DP)]
-    home = flat[0]
+    mine = [d for d, o in zip(grid.flat, owners.flat)
+            if o == process.index()]
+    counts = {d: mine.count(d) for d in grid.flat}
+    rings = [ranks_of(grid[r], range(r * K, (r + 1) * K), counts,
+                      owners[r].tolist()) for r in range(DP)]
+    home = mesh.home
     pairs = [(_as_seq(a, home), _as_seq(b, home))
              for a, b in zip(queries, subjects)]
     if any(a.shape[0] == 0 or b.shape[0] == 0 for a, b in pairs):
         raise ValueError("empty sequences are not supported")
     per_row = -(-len(pairs) // DP)
-    pending = [launch_pair(a, b, mode, sc, rings[i // per_row], band_rows)
+    pending = [launch_pair(a, b, mode, sc, rings[i // per_row], band_rows,
+                           processes=mesh.spans_processes)
                for i, (a, b) in enumerate(pairs)]
     return [linmem.extract_score_from_outputs(
         done(), int(a.shape[0]), int(b.shape[0]), mode)

@@ -61,7 +61,9 @@ def align(query, subject, mode="global", scoring=LinearScoring(),
     traceback: "hirschberg" (linear memory), "full" (O(m*n) predecessor
     codes), or "auto" (full up to 2^22 cells, Hirschberg above). With a
     ``mesh`` (``dist.mesh.Mesh``) the construction runs over its devices
-    (``hirschberg.align_hirschberg``) and `device` is not read."""
+    (``hirschberg.align_hirschberg``) and `device` is not read; over a
+    mesh of several processes every process makes the call and gets the
+    alignment."""
     mode = Mode.parse(mode)
     if mesh is not None:
         # as in the JAX package, a mesh always means Hirschberg

@@ -594,7 +594,8 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
     go pair by pair through ``api.align``, as in the JAX package. With a
     ``mesh`` (``dist.mesh.Mesh``), linear pairs are split over its devices
     in order (``dist.batch.align_batch_sharded``) and affine pairs run on
-    its first device; `device` is not read.
+    its first device of this process (on each process of a mesh over
+    several); `device` is not read.
     ``batch_size`` is accepted for the JAX package's signature: the chunk
     size is set by device memory."""
     from anyseq_tpu_torch.engine import api
@@ -611,7 +612,7 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
         if not isinstance(sc, AffineScoring):
             return dist_batch.align_batch_sharded(queries, subjects, mode,
                                                   sc, mesh)
-        device = mesh.device_list()[0]
+        device = mesh.home
     if isinstance(sc, AffineScoring):
         if len(queries) != len(subjects):
             raise ValueError("queries and subjects must have equal length")

@@ -40,11 +40,19 @@ its mesh branches), with the same splits and therefore the same strings:
   (``dist.batch``: K4 / K5L, pred sweeps + K3 / K6), and the endpoint
   passes run over the mesh. Every split, and so every string, is the
   single-device one;
+* over a mesh of several processes (``dist.mesh.init_distributed``)
+  every process runs this same construction: the collective sweeps and the
+  data-parallel slices return the same results on every process, so each
+  takes the same splits and builds the same strings;
 * with ``checkpoint_path``, each completed level and terminal chunk
   rewrites one npz (the parts still to divide, the terminal stripes, the
   output buffers copied to the host, the root score), and the endpoint
   stages of semiglobal and local alignments another; a killed run called
-  again with the same arguments resumes and gives the same bytes.
+  again with the same arguments resumes and gives the same bytes. Over
+  several processes process 0 writes it and every process reads it;
+* with ``ANYSEQ_TIMING=1`` in the environment, each level, the terminal
+  stripes and the endpoint passes log their wall time (stderr, and
+  :data:`TIMING_LOG`), in the JAX package's words.
 
 ``MIN_WIDTH`` is 256 on every device: the stripe boundaries decide tie
 cells in the strings, and the JAX package uses 256 off the TPU.
@@ -53,6 +61,8 @@ from __future__ import annotations
 
 import hashlib
 import os
+import sys
+import time
 
 import numpy as np
 import torch
@@ -68,7 +78,7 @@ from anyseq_tpu_torch.core.types import (
     check_scoring,
 )
 from anyseq_tpu_torch.dist import batch as dist_batch
-from anyseq_tpu_torch.dist import sharded
+from anyseq_tpu_torch.dist import process, sharded
 from anyseq_tpu_torch.dist.mesh import check_mesh
 from anyseq_tpu_torch.engine import batch, linmem
 from anyseq_tpu_torch.engine.resumable import atomic_savez
@@ -79,27 +89,49 @@ TERMINAL_BATCH = 512
 _RS_NONE = -(2**62)    # no root score yet, in a checkpoint
 _STAGE_KEYS = ("stage", "score", "ei", "ej", "rscore", "ri", "rj")
 
+# ANYSEQ_TIMING=1: the construction's phases, with their wall times, as
+# the JAX package logs them (stderr and this list)
+TIMING_LOG: list[str] = []
+
+
+def _tlog(msg: str) -> None:
+    if os.environ.get("ANYSEQ_TIMING") == "1":
+        TIMING_LOG.append(msg)
+        print(f"[hb] {msg}", file=sys.stderr, flush=True)
+
+
+def _ms(t0: float) -> str:
+    return f"{(time.perf_counter() - t0) * 1e3:.0f}ms"
+
 
 class _HbCheckpoint:
     """Durable state of a construction: one npz, rewritten atomically
     after each completed unit of work and tagged with the problem's key;
-    a checkpoint of another problem is refused."""
+    a checkpoint of another problem is refused. ``shared``: the
+    construction runs on every process of a mesh over several; process 0
+    writes, every process reads, and none goes on before every process
+    has read it or process 0 has written it."""
 
-    def __init__(self, path, key: str):
+    def __init__(self, path, key: str, shared: bool = False):
         self.path = path
         self.key = key
+        self.shared = shared
 
     def load(self):
-        if not self.path or not os.path.exists(self.path):
-            return None
-        ck = np.load(self.path, allow_pickle=False)
-        if str(ck["key"]) != self.key:
-            raise ValueError("checkpoint does not match this problem")
+        ck = None
+        if self.path and os.path.exists(self.path):
+            ck = np.load(self.path, allow_pickle=False)
+            if str(ck["key"]) != self.key:
+                raise ValueError("checkpoint does not match this problem")
+        if self.shared:
+            process.barrier()
         return ck
 
     def save(self, **arrays):
-        if self.path:
+        if self.path and not (self.shared and process.index()):
             atomic_savez(self.path, key=self.key, **arrays)
+        if self.path and self.shared:
+            process.barrier()
 
 
 def _ckpt_key(q, s, mode: Mode, sc) -> str:
@@ -207,14 +239,32 @@ def _level_batched(q, s, parts, sc, mesh=None):
     return [k[0::2] for k in kinds] + [k[1::2] for k in kinds]
 
 
+def _per_half(parts, mesh, sp_min_width: int) -> bool:
+    """Whether a level runs one sweep per half (else all in one batch)."""
+    if mesh is None:
+        return (len(parts) <= 2
+                or max(p[1] - p[0] for p in parts) > band.M_MAX)
+    return (len(parts) <= 4 and min((p[3] - p[2]) // 2 for p in parts)
+            >= sp_min_width)
+
+
+def _level_msg(parts, sc, mesh, sp_min_width: int) -> str:
+    """A level's line of the phase log, but its time."""
+    affine = isinstance(sc, AffineScoring)
+    if _per_half(parts, mesh, sp_min_width):
+        path = "per-half" if mesh is None else "mesh-sp"
+    elif affine:
+        path = "batched-kernel" if mesh is None else "mesh-batch"
+    else:
+        path = "batched"
+    return (f"{'aff ' if affine else ''}level P={len(parts)} "
+            f"maxh={max(p[1] - p[0] for p in parts)} "
+            f"maxmid={max((p[3] - p[2]) // 2 for p in parts)} path={path}")
+
+
 def _split(q, s, parts, sc, mesh=None, sp_min_width: int = 0):
     """Split rows of a level: (k, crosses_in_gap, score) per part."""
-    if mesh is None:
-        per_half = (len(parts) <= 2
-                    or max(p[1] - p[0] for p in parts) > band.M_MAX)
-    else:
-        per_half = (len(parts) <= 4 and min((p[3] - p[2]) // 2 for p in parts)
-                    >= sp_min_width)
+    per_half = _per_half(parts, mesh, sp_min_width)
     level = _level_per_half if per_half else _level_batched
     cols = level(q, s, parts, sc, mesh)
     dev = cols[0].device
@@ -334,6 +384,7 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
 
     while active:
         parts, active = active, []
+        t0 = time.perf_counter()
         ks, cross, scores = _split(q, s, parts, sc, mesh, sp_min_width)
         rows = torch.stack([ks, cross.to(ks.dtype), scores]).T.tolist()
         for (qlo, qhi, slo, shi, sg, eg), (k, c, score) in zip(parts, rows):
@@ -343,7 +394,9 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
             c = bool(c)
             classify((qlo, qlo + k + 1, slo, slo + mid, sg, c))
             classify((qlo + k + 1, qhi, slo + mid, shi, c, eg))
+        _tlog(f"{_level_msg(parts, sc, mesh, sp_min_width)} {_ms(t0)}")
         save()
+    t0 = time.perf_counter()
     for ci, chunk in enumerate(_terminal_chunks(terminals)):
         if ci < term_done:
             continue
@@ -352,6 +405,8 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
             root_score = int(scores[chunk.index(root)])
         term_done = ci + 1
         save()
+    _tlog(f"{'aff ' if isinstance(sc, AffineScoring) else ''}terminals "
+          f"n={len(terminals)} {_ms(t0)}")
     return root_score
 
 
@@ -385,11 +440,13 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
                      device="cuda", mesh=None, checkpoint_path=None,
                      sp_min_width: int | None = None) -> Alignment:
     """Linear-memory alignment construction on `device`, or over the
-    devices of `mesh` (a ``dist.mesh.Mesh``; its first device then holds
-    the sequences and outputs, and `device` is not read), bit-identical
-    to the single-device construction. ``sp_min_width``: the narrowest
-    half that a level of at most 4 parts runs over the whole mesh (default
-    2,048 columns a device of the mesh).
+    devices of `mesh` (a ``dist.mesh.Mesh``; this process's first device
+    of it then holds the sequences and outputs, and `device` is not read),
+    bit-identical to the single-device construction; over a mesh of
+    several processes every process makes the call and gets the result.
+    ``sp_min_width``: the narrowest half that a level of at most 4 parts
+    runs over the whole mesh (default 2,048 columns a device of the
+    mesh).
 
     ``checkpoint_path``: a durable npz state, updated after every
     completed unit of work; a killed run called again with the same
@@ -399,12 +456,15 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
     (1: the forward end found, 2: the reverse start found) and the
     construction of their rectangle under ``checkpoint_path + ".rect"``.
     The output buffers live on `device`; a save copies them to the host.
-    A checkpoint of a run over a mesh resumes with or without one.
+    A checkpoint of a run over a mesh resumes with or without one; over
+    a mesh of several processes, process 0 writes it and every process
+    reads it.
     """
     mode = Mode.parse(mode)
     sc = check_scoring(scoring)
+    shared = mesh is not None and check_mesh(mesh).spans_processes
     if mesh is not None:
-        device = check_mesh(mesh).device_list()[0]
+        device = mesh.home
         if sp_min_width is None:
             sp_min_width = 2048 * mesh.size
     q = as_tensor(query, device)
@@ -426,7 +486,8 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
         if checkpoint_path is not None:
             path = (checkpoint_path if mode is Mode.GLOBAL
                     else checkpoint_path + ".rect")
-            ckpt = _HbCheckpoint(path, _ckpt_key(qr, sr, Mode.GLOBAL, sc))
+            ckpt = _HbCheckpoint(path, _ckpt_key(qr, sr, Mode.GLOBAL, sc),
+                                 shared)
         return _hb_global(qr, sr, off, out_q, out_s, sc, ckpt, mesh,
                           sp_min_width)
 
@@ -436,7 +497,8 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
     # the endpoint stages: 1 = forward end found, 2 = reverse start found
     outer, stage = None, 0
     if checkpoint_path is not None:
-        outer = _HbCheckpoint(checkpoint_path, _ckpt_key(q, s, mode, sc))
+        outer = _HbCheckpoint(checkpoint_path, _ckpt_key(q, s, mode, sc),
+                              shared)
         ck = outer.load()
         if ck is not None:
             stage, score, ei, ej, rscore, ri, rj = (int(ck[k])
@@ -447,14 +509,17 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
             outer.save(**{k: np.int64(v) for k, v in zip(_STAGE_KEYS, values)})
 
     if stage < 1:
+        t0 = time.perf_counter()
         outs = _sweep(q, s, mode, sc, mesh)
         score, ei, ej = linmem.extract_end(outs, m, n, mode).tolist()
+        _tlog(f"fwd pass {_ms(t0)}")
         save_stage(1, score, ei, ej, 0, 0, 0)
     if ei < 0 or ej < 0 or (mode is Mode.LOCAL and score <= 0):
         # empty alignment: a boundary maximum, or no positive local cell
         return result(score, (ei + 1, ej + 1))
 
     if stage < 2:
+        t0 = time.perf_counter()
         qr = q[: ei + 1].flip(0)
         sr = s[: ej + 1].flip(0)
         if mode is Mode.LOCAL:
@@ -463,6 +528,7 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
             # GLOBAL inits pin the reverse start to the forward end cell
             outs = _sweep(qr, sr, Mode.GLOBAL, sc, mesh)
             rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
+        _tlog(f"rev pass {_ms(t0)}")
         save_stage(2, score, ei, ej, rscore, ri, rj)
     si, sj = ei - ri, ej - rj
     if si > ei or sj > ej:

@@ -57,7 +57,7 @@ AFFINE_CODE_WIDTHS = (16, 8, 4)
 
 # Tallest query swept in one piece (the JAX package's M_MAX, a TPU memory
 # cap: on the H100 one K1 sweep still fits at 1 Mbp and is faster than
-# the chain, ROADMAP item 9), and the rows of each band of the chain above
+# the chain, ROADMAP R2), and the rows of each band of the chain above
 # it (its M_BAND).
 M_MAX = 512 * 1024
 M_BAND = 256 * 1024
@@ -185,6 +185,45 @@ class Halo:
 
     def tensors(self):
         return [t for t in (self.h, self.e, self.flags) if t is not None]
+
+    # A process edge of the collective sweep (``dist/collective.py``): the
+    # columns cross in host memory, one band at a time; no kernel waits
+    # on a flag that another process's work must raise.
+
+    def host_stage(self, pinned: bool) -> torch.Tensor:
+        """Host memory for this halo's columns at a process edge (pinned
+        for a card's copies), laid out band by band: see :meth:`slot`."""
+        c = 1 if self.e is None else 2
+        return torch.empty(c * self.h.shape[0], dtype=torch.int32,
+                           pin_memory=pinned)
+
+    def slot(self, stage: torch.Tensor, i0: int, h: int) -> torch.Tensor:
+        """The (1, h) H column of the band at rows [i0, i0 + h) in
+        `stage`, or its (2, h) H and E columns (affine): one contiguous
+        message."""
+        c = 1 if self.e is None else 2
+        return stage[c * i0:c * (i0 + h)].view(c, h)
+
+    def fill(self, b: int, i0: int, cols: torch.Tensor) -> None:
+        """Band b's columns, received from the process on the left, into
+        rows [i0, i0 + h) of h (and e), and its flag raised: on the current
+        stream, before the band's K10 launch, which then finds them all
+        published."""
+        h = cols.shape[1]
+        self.h[i0:i0 + h].copy_(cols[0], non_blocking=True)
+        if self.e is not None:
+            self.e[i0:i0 + h].copy_(cols[1], non_blocking=True)
+        self.flags[b:b + 1].fill_(h)
+
+    def read(self, i0: int, cols: torch.Tensor) -> None:
+        """The columns that this (staging) halo's producer wrote into rows
+        [i0, i0 + h), into `cols` (a :meth:`slot` of host memory): on the
+        current stream, after the band's launch; the copy has landed once
+        an event recorded after it has."""
+        h = cols.shape[1]
+        cols[0].copy_(self.h[i0:i0 + h], non_blocking=True)
+        if self.e is not None:
+            cols[1].copy_(self.e[i0:i0 + h], non_blocking=True)
 
 
 def _ptr(t, offset: int = 0):

@@ -88,7 +88,18 @@ Phases (any failure raises and ends the run with a non-zero exit code):
    batch path's 10,000 local pairs, ``dryrun_multichip`` and
    ``score_pairs_collective`` on a 2 x 2 mesh of cuda:0 (3 pairs of
    100k, linear and affine), each equal to the single-device result of
-   the same inputs.
+   the same inputs. Processes (``phase3_processes``, a generator of its
+   own): two worker processes (this script with ``--processes-worker``),
+   each with a mesh of cuda:0, joined by ``init_distributed`` on
+   127.0.0.1 over torch.distributed, run ``score_pair_sharded`` 1 Mbp
+   global linear (bands of 262,144 and of 65,536 rows handed from one
+   process to the other) and 100k local affine, ``align(mesh=)`` 100k
+   semiglobal linear and affine (rescored from their strings) and
+   ``align_batch(mesh=)`` on 10,000 local ~256 bp pairs, each cold then
+   warm; both workers' results must equal each other's and the single
+   device's (run first, cold then warm), and each worker must have
+   launched every kernel of the path. The two processes time-slice the
+   card: their walls measure the hand-off and its overhead.
 4. Each kernel against its plain version again, on the very inputs the
    main paths gave it in phase 3 (kept as they passed), bit for bit; K1
    and K5 with the width and warps they ran at, bound and share, also
@@ -147,9 +158,10 @@ KERNELS = {
                         "anyseq_tpu/kernels/band.py:1336", "linear"),
     "walk": ("anyseq_tpu_torch/kernels/csrc/walk.cu",
              "anyseq_tpu/engine/device_tb.py:405",
-             "linear batch genome mesh"),
+             "linear batch genome mesh processes"),
     "lastcols": ("anyseq_tpu_torch/kernels/csrc/lastcols.cu",
-                 "anyseq_tpu/kernels/band.py:1677", "linear genome mesh"),
+                 "anyseq_tpu/kernels/band.py:1677",
+                 "linear genome mesh processes"),
     "wavefront_affine_score": (
         "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
         "anyseq_tpu/kernels/band.py:1336", "affine genome"),
@@ -158,14 +170,15 @@ KERNELS = {
         "anyseq_tpu/kernels/band.py:1336", "affine"),
     "lastcols_affine": ("anyseq_tpu_torch/kernels/csrc/lastcols_affine.cu",
                         "anyseq_tpu/kernels/band.py:1677",
-                        "affine genome mesh"),
+                        "affine genome mesh processes"),
     "walk_affine": ("anyseq_tpu_torch/kernels/csrc/walk_affine.cu",
                     "anyseq_tpu/engine/device_tb.py:352",
-                    "affine genome mesh"),
+                    "affine genome mesh processes"),
     "swarm_score": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
                     "anyseq_tpu/kernels/swarm.py:318", "batch mesh"),
     "swarm_preds": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
-                    "anyseq_tpu/kernels/swarm.py:318", "batch mesh"),
+                    "anyseq_tpu/kernels/swarm.py:318",
+                    "batch mesh processes"),
     "band": ("anyseq_tpu_torch/kernels/csrc/band.cu",
              "anyseq_tpu/kernels/band.py:1443", "genome"),
     "band_affine": ("anyseq_tpu_torch/kernels/csrc/band_affine.cu",
@@ -173,10 +186,11 @@ KERNELS = {
     # T4's collective mode (collective_axis=), reached from
     # anyseq_tpu/dist/collective.py:213 (_stripe_bands)
     "band_collective": ("anyseq_tpu_torch/kernels/csrc/band.cu",
-                        "anyseq_tpu/kernels/band.py:1443", "mesh"),
+                        "anyseq_tpu/kernels/band.py:1443",
+                        "mesh processes"),
     "band_collective_affine": (
         "anyseq_tpu_torch/kernels/csrc/band_affine.cu",
-        "anyseq_tpu/kernels/band.py:1443", "mesh"),
+        "anyseq_tpu/kernels/band.py:1443", "mesh processes"),
 }
 # int32 instructions a cell (or a walk step) of each kernel's function on
 # an H100, a max-plus (DPX VIADDMNMX, one instruction) counted as one:
@@ -2167,6 +2181,211 @@ def phase3_mesh(rng, kept, counts):
           f"results (4.6 Mbp score {outs[calls[0][0]]})", flush=True)
 
 
+# the two-process path (phase3_processes): its calls, each run by two
+# worker processes that share cuda:0, joined over torch.distributed
+PROCESS_BP = 1_000_000
+PROCESS_BAND_ROWS = (262_144, 65_536)    # the hand-off's band heights
+PROCESS_TIMEOUT_S = 420                  # a worker's limit
+
+
+def processes_inputs():
+    """The two-process path's inputs, from a generator of their own (the
+    workers draw the same): a 1 Mbp pair, a 100k pair and 10,000 pairs of
+    ~256 bp."""
+    rng = np.random.default_rng(SEED + 20)
+    big = related_pair(rng, PROCESS_BP)
+    mid = related_pair(rng, 100_000)
+    qs, ss = zip(*[related_pair(rng, 256) for _ in range(10_000)])
+    return big, mid, (list(qs), list(ss))
+
+
+def processes_calls(mesh):
+    """(name, cells, call, summary) of the two-process path: each call
+    over `mesh` (None: on one device), and the summary of its result that
+    both workers and the single device must give alike."""
+    import hashlib
+
+    import anyseq_tpu_torch as pt
+    from anyseq_tpu_torch.dist import batch as dist_batch
+    from anyseq_tpu_torch.dist.sharded import score_pair_sharded
+    from anyseq_tpu_torch.engine import linmem
+
+    sc = pt.LinearScoring()
+    asc = pt.AffineScoring(*AFFINE)
+    (q1, s1), (q5, s5), (qs, ss) = processes_inputs()
+
+    def score(q, s, mode, scoring, rows=None):
+        if mesh is None:
+            return pt.align_score(q, s, mode, scoring, device=DEVICE)
+        outs = score_pair_sharded(q, s, mode, scoring, mesh, band_rows=rows)
+        return int(linmem.extract_end(outs, len(q), len(s), mode)[0])
+
+    def align(mode, scoring):
+        if mesh is None:
+            return pt.align(q5, s5, mode, scoring, traceback="hirschberg",
+                            device=DEVICE)
+        return pt.align(q5, s5, mode, scoring, mesh=mesh)
+
+    def aligned(aln, scoring):
+        """An alignment's score, start, strings' digest and rescore."""
+        digest = hashlib.sha256(aln.query_aligned + b"|"
+                                + aln.subject_aligned).hexdigest()
+        return [aln.score, list(aln.start), digest, rescore(aln, scoring)]
+
+    def batch():
+        if mesh is None:
+            return pt.align_batch(qs, ss, "local", sc, device=DEVICE)
+        return pt.align_batch(qs, ss, "local", sc, mesh=mesh)
+
+    def batched(alns):
+        h = hashlib.sha256()
+        for a in alns:
+            h.update(repr((a.score, a.start)).encode() + a.query_aligned
+                     + a.subject_aligned)
+        return [sum(a.score for a in alns), h.hexdigest()]
+
+    big, mid = len(q1) * len(s1), len(q5) * len(s5)
+    calls = [(f"score_pair_sharded 1 Mbp global linear, bands of {rows}",
+              big, lambda rows=rows: score(q1, s1, "global", sc, rows), int)
+             for rows in PROCESS_BAND_ROWS]
+    return calls + [
+        ("score_pair_sharded 100k local affine", mid,
+         lambda: score(q5, s5, "local", asc), int),
+        ("align(mesh=) 100k semiglobal linear", mid,
+         lambda: align("semiglobal", sc), lambda a: aligned(a, sc)),
+        ("align(mesh=) 100k semiglobal affine", mid,
+         lambda: align("semiglobal", asc), lambda a: aligned(a, asc)),
+        ("align_batch(mesh=) 10,000 local pairs ~256 bp",
+         sum(len(a) * len(b) for a, b in zip(qs, ss)), batch, batched),
+    ]
+
+
+def processes_worker(pid: int, port: int, out_dir: str) -> None:
+    """One of phase3_processes's two workers: joins the other through
+    torch.distributed, runs every call of the path twice (cold, warm) over
+    the mesh of both workers' cuda:0 and writes each call's summary, walls
+    and kernel launches to out_dir/worker<pid>.json."""
+    from anyseq_tpu_torch.dist import process
+    from anyseq_tpu_torch.dist.mesh import init_distributed, make_mesh
+    from anyseq_tpu_torch.kernels import _build
+
+    init_distributed(f"127.0.0.1:{port}", 2, pid)
+    mesh = make_mesh(devices=[DEVICE + ":0"])
+    check(mesh.owner_list() == [0, 1], f"worker {pid}: {mesh}")
+    _build.library()
+    torch.zeros(1, device=DEVICE).sum().item()
+    calls = processes_calls(mesh)
+    for k in _build.launches:
+        _build.launches[k] = 0
+    res = {"mesh": repr(mesh), "calls": {}}
+    for name, _, fn, summary in calls:
+        walls = []
+        for _ in ("cold", "warm"):
+            before = dict(_build.launches)
+            process.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res["calls"][name] = {
+            "result": summary(out), "walls_s": walls,
+            "launches": {k: v - before[k] for k, v in _build.launches.items()
+                         if v > before[k]}}
+        print(f"worker {pid}: {name} walls_s={walls}", flush=True)
+    res["launches"] = {k: v for k, v in _build.launches.items() if v}
+    with open(os.path.join(out_dir, f"worker{pid}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase3_processes(counts):
+    """The multi-process path: two worker processes (this script with
+    --processes-worker), each with a mesh of cuda:0, joined by
+    init_distributed on 127.0.0.1, run the calls of processes_calls at full
+    size; every worker's results must equal the other's and the single
+    device's (run here first, cold then warm). Prints each call's walls
+    (the two processes time-slice the card: the walls measure the
+    hand-off and its overhead) and the kernels each worker launched; the
+    path's kernels must have launched in both. A worker that fails or
+    passes PROCESS_TIMEOUT_S fails the phase (both are stopped)."""
+    import socket
+    import tempfile
+
+    calls = processes_calls(None)
+    single = {}
+    for name, cells, fn, summary in calls:
+        walls = []
+        for _ in ("cold", "warm"):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        single[name] = summary(out)
+        print(f"phase3 processes single device {name} cells={cells} "
+              f"walls_s={[round(w, 4) for w in walls]} "
+              f"result={json.dumps(single[name])}", flush=True)
+    torch.cuda.empty_cache()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as out_dir:
+        logs = [open(os.path.join(out_dir, f"worker{pid}.log"), "w+")
+                for pid in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__),
+             "--processes-worker", str(pid), str(port), out_dir],
+            stdout=logs[pid], stderr=subprocess.STDOUT, cwd=ROOT)
+            for pid in range(2)]
+        # until both end, one fails (the other would wait on it) or the
+        # limit passes
+        deadline = time.perf_counter() + PROCESS_TIMEOUT_S
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            check(p.returncode == 0,
+                  f"worker {pid} exited {p.returncode} within "
+                  f"{PROCESS_TIMEOUT_S} s:\n{text[-4000:]}")
+            with open(os.path.join(out_dir, f"worker{pid}.json")) as f:
+                outs.append(json.load(f))
+    print(f"phase3 processes: 2 workers, mesh {outs[0]['mesh']}",
+          flush=True)
+    for name, cells, _, _ in calls:
+        got = [w["calls"][name] for w in outs]
+        for pid, g in enumerate(got):
+            print(f"phase3 processes worker {pid} {name} cells={cells} "
+                  f"walls_s={[round(x, 4) for x in g['walls_s']]} "
+                  f"gcups_warm={cells / g['walls_s'][1] / 1e9:.2f} "
+                  f"launches={json.dumps(g['launches'])}", flush=True)
+        check(got[0]["result"] == got[1]["result"] == json.loads(
+            json.dumps(single[name])), f"processes: {name}: both workers "
+            f"{got[0]['result']} / {got[1]['result']} == the single device "
+            f"{single[name]}")
+        if isinstance(single[name], list) and len(single[name]) == 4:
+            check(single[name][3] == single[name][0],
+                  f"processes: {name} rescored {single[name][3]} == score "
+                  f"{single[name][0]}")
+    path = [k for k, v in KERNELS.items() if "processes" in v[2].split()]
+    for pid, w in enumerate(outs):
+        for k in path:
+            check(w["launches"].get(k, 0) > 0,
+                  f"worker {pid} launched {k} ({w['launches']})")
+            counts[k] = counts.get(k, 0) + w["launches"][k]
+    print(f"phase3 processes: all {len(calls)} calls equal in both workers "
+          "and to the single device", flush=True)
+
+
 def cut_collective(fn, args, rows: int):
     """A kept K10 (or K10 affine) launch cut to its first `rows` rows: the
     band's rows and its explicit left columns (the first rank's)."""
@@ -2561,6 +2780,9 @@ def check_level_plans():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--processes-worker"]:
+        processes_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not os.path.isdir(os.path.join(ROOT, "anyseq_tpu_torch", "kernels",
                                       "csrc")):
         print("chip_smoke: no anyseq_tpu_torch/ beside this script",
@@ -2588,6 +2810,13 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     timings, errors, kept, whole = {}, {}, [], {}
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        """The run's time so far, after `what` (the 1200 s budget)."""
+        print(f"elapsed after {what}: {time.perf_counter() - t_start:.1f}s",
+              flush=True)
+
     phase2(rng, errors)
     # its own generator: the later phases' seeded pairs stay as they were
     phase2_walks(np.random.default_rng(SEED + 10), errors)
@@ -2599,15 +2828,22 @@ def main() -> int:
     phase2_swarm_affine_codes(rng, errors)
     # its own generator, as phase2_walks'
     phase2_swarm(np.random.default_rng(SEED + 11), errors)
+    elapsed("phase 2")
     counts = phase3(rng, kept)
     phase3_batch(rng, kept, counts)
     phase3_small(rng)
+    elapsed("phase 3's single-pair, batch and small paths")
     phase3_genome(rng, kept, counts)
+    elapsed("phase 3's genome path")
     phase3_mesh(rng, kept, counts)
+    elapsed("phase 3's mesh path")
+    phase3_processes(counts)
+    elapsed("phase 3's multi-process path")
     phase4(kept, timings, errors, sm_clock_mhz)
     check_level_plans()
     phase4_band(kept, timings, errors, whole, sm_clock_mhz)
     phase4_mesh(kept, timings, errors, sm_clock_mhz)
+    elapsed("phase 4")
 
     # no PyTorch call computes a DP alignment or a traceback walk, so no
     # kernel has a library yardstick; K8's times are at a cut of a band,

@@ -23,6 +23,7 @@ from anyseq_tpu_torch.kernels import (
     walk,
     wavefront,
 )
+from anyseq_tpu_torch.utils import debug
 
 SC = LinearScoring(2, -1, -1)
 # the bench suite's affine scoring, and a free extension (ge = 0)
@@ -49,6 +50,14 @@ def _seq(rng, n):
     return torch.from_numpy(rng.integers(65, 69, n).astype(np.uint8))
 
 
+def _dp_state(q, s, mode, sc, cells: int = 400) -> str:
+    """A failure message's whole plain DP state of a small pair (of a
+    larger one, its shape)."""
+    if q.numel() * s.numel() > cells:
+        return f"{q.numel()}x{s.numel()} (too large to print its DP state)"
+    return "\n" + debug.format_dp_state(q.numpy(), s.numpy(), mode, sc)
+
+
 @pytest.mark.parametrize("preds", [False, True], ids=["K1", "K2"])
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
 @pytest.mark.parametrize("m,n", [(1, 1), (5, 17), (130, 1030), (64, 1024),
@@ -63,7 +72,7 @@ def test_wavefront_kernel(emu_lib, m, n, mode, preds):
                                                                  SC)
     assert got.keys() == want.keys()
     for k in want:
-        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], want[k]), (k, _dp_state(q, s, mode, SC))
 
 
 @pytest.mark.parametrize("preds", [False, True], ids=["K1", "K2"])
@@ -139,7 +148,8 @@ def test_wavefront_affine_kernel(emu_lib, m, n, mode, preds, sc):
             want = wavefront.plain_affine(q, s, mode, sc, start_gap, col_e)
         assert got.keys() == want.keys()
         for k in want:
-            assert torch.equal(got[k], want[k]), (k, start_gap)
+            assert torch.equal(got[k], want[k]), (
+                k, start_gap, _dp_state(q, s, mode, sc))
 
 
 @pytest.mark.parametrize("preds", [False, True], ids=["K5", "K5p"])
@@ -627,6 +637,82 @@ def test_band_collective_kernel_local_tie(emu_collective, sc):
     assert torch.equal(got["best"], want["best"])
 
 
+@pytest.mark.parametrize("sc", [SC, ASC[0]], ids=str)
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.value)
+def test_band_collective_kernel_process_edge(emu_lib, mode, sc):
+    """A process edge of the collective sweep (dist/collective.py), on the
+    emulated K10 / K10 affine: the left rank writes each band's columns
+    into a staging Halo, Halo.read copies them into host memory (one
+    message a band, Halo.slot), and Halo.fill puts them into the right
+    rank's halo with its flag raised before the right rank's launch,
+    which then finds every row published and takes the corner of bands
+    b > 0 from it; the two stripes equal one plain sweep."""
+    from anyseq_tpu_torch.dist import collective
+
+    m, n, rows, j0 = 70, 2100, 33, 1024
+    rng = np.random.default_rng(13)
+    q, s = _seq(rng, m), _seq(rng, n)
+    is_affine = isinstance(sc, AffineScoring)
+    bands = -(-m // rows)
+    staging = band.Halo(m, bands, is_affine, "cpu", "cpu")
+    halo = band.Halo(m, bands, is_affine, "cpu", "cpu")
+    stage = staging.host_stage(False)
+    if is_affine:
+        row, rowf = affine.top_row_affine(mode, sc, n, False, "cpu")
+    else:
+        row, rowf = linmem.top_row(mode, sc, n, "cpu"), None
+    stripes = [[row[:j0], None if rowf is None else rowf[:j0]],
+               [row[j0:], None if rowf is None else rowf[j0:]]]
+    cols, bests = [], []
+    for b in range(bands):
+        i0 = b * rows
+        h = min(rows, m - i0)
+        for k, (lo, hi) in enumerate(((0, j0), (j0, n))):
+            if k == 0 and is_affine:
+                corner, col, cole = affine.left_col_affine(mode, sc, i0, h,
+                                                           False, "cpu")
+            elif k == 0:
+                (corner, col), cole = linmem.left_col(mode, sc, i0, h,
+                                                      "cpu"), None
+            else:
+                corner = collective._top(mode, sc, j0 - 1, False) if b == 0 \
+                    else None
+                col = cole = None
+            args = (q[i0:i0 + h], s[lo:hi], stripes[k][0], corner, col)
+            halos = (halo if k else None, None if k else staging, b, i0)
+            if is_affine:
+                outs = band.launch_collective_affine(
+                    emu_lib, *args[:2], args[2], stripes[k][1], corner, col,
+                    cole, mode, sc, *halos, grid=2)
+                stripes[k][1] = outs["last_row_f"]
+            else:
+                outs = band.launch_collective(emu_lib, *args, mode, sc,
+                                              *halos, grid=2)
+            stripes[k][0] = outs["last_row"]
+            bests.append(outs["best"] + torch.tensor([0, i0, lo],
+                                                     dtype=torch.int32))
+            if k == 0:
+                # the message: written by the left rank, read into host
+                # memory, received into the right rank's halo
+                slot = staging.slot(stage, i0, h)
+                staging.read(i0, slot)
+                message = slot.clone()
+                halo.fill(b, i0, message)
+                assert int(halo.flags[b]) == h
+            else:
+                cols.append(outs["last_col"])
+    if is_affine:
+        want = wavefront.plain_affine(q, s, mode, sc, False, True)
+    else:
+        want = wavefront.plain(q, s, mode, sc)
+    assert torch.equal(torch.cat([stripes[0][0], stripes[1][0]]),
+                       want["last_row"])
+    assert torch.equal(torch.cat(cols), want["last_col"])
+    if mode is Mode.LOCAL:
+        assert torch.equal(band.reduce_best(torch.stack(bests)),
+                           want["best"])
+
+
 # --- K8 / K10 and their affine modes: the warp strip cores
 # (csrc/band_sweep.cuh, csrc/band_sweep_affine.cuh) ---
 
@@ -902,7 +988,8 @@ def _check_sweep(lib, q, s, mode, sc, width, start_gap=False, grid=0,
             q, s, mode, sc)
     assert got.keys() == want.keys()
     for k in want:
-        assert torch.equal(got[k], want[k]), (k, width, start_gap, grid)
+        assert torch.equal(got[k], want[k]), (
+            k, width, start_gap, grid, _dp_state(q, s, mode, sc))
     return got
 
 

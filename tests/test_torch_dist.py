@@ -6,6 +6,8 @@ its own tests hold bit-identical to its collective engine, and one small
 case of the collective engine under the TPU interpreter), chained bands,
 ranks without columns, a LOCAL tie across a rank boundary and the 2-D
 (dp x sp) batch. Outputs are int32 and must be bit-identical."""
+import socket
+
 import jax
 import numpy as np
 import pytest
@@ -92,9 +94,24 @@ def test_make_mesh():
 
 
 def test_init_distributed():
+    """Without a coordinator a no-op (one process); with one, the process
+    joins a run over torch.distributed (here a run of one), and make_mesh
+    gathers the run's devices (tests/test_torch_multihost.py runs two)."""
     meshlib.init_distributed()
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        meshlib.init_distributed("localhost:1234", 2, 0)
+    assert not torch.distributed.is_initialized()
+    assert (meshlib.process_index(), meshlib.process_count()) == (0, 1)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    meshlib.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert torch.distributed.is_initialized()
+        assert (meshlib.process_index(), meshlib.process_count()) == (0, 1)
+        mesh = make_mesh(devices=["cpu"] * 2)
+        assert mesh.owner_list() == [0, 0] and not mesh.spans_processes
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_lex_best_merge_order():
