@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
+
+from anyseq_tpu_torch.utils.profiling import Timer, timed
 
 # devices of a --mesh on the CPU (the JAX package's tests run 8 virtual
 # CPU devices)
@@ -42,10 +43,9 @@ def _random_string(rng, minlen: int, maxlen: int) -> bytes:
 
 def _timed(name: str, fn, out):
     print(f"testing {name}", end="", flush=True, file=out)
-    t0 = time.perf_counter()
+    t = Timer().start()
     result = fn()
-    ms = int(round((time.perf_counter() - t0) * 1000))
-    print(f" {ms} ms", file=out)
+    print(f" {t.stop().milliseconds()} ms", file=out)
     return result
 
 
@@ -184,21 +184,17 @@ def main(argv=None) -> int:
         if args.score_only:
             from anyseq_tpu_torch.dist.batch import align_scores_batch_sharded
 
-            t0 = time.perf_counter()
-            scores = align_scores_batch_sharded(qs, ss, mode, scoring, mesh,
-                                                device=args.device)
-            ms = int(round((time.perf_counter() - t0) * 1000))
-            print(f"testing batch {mode} score {ms} ms", file=out)
+            with timed(f"batch {mode} score", file=out):
+                scores = align_scores_batch_sharded(qs, ss, mode, scoring,
+                                                    mesh, device=args.device)
             for i, sc_ in enumerate(scores):
                 print(f"pair {i}: score {int(sc_)}", file=out)
         else:
             from anyseq_tpu_torch.io.alignment import print_alignment
 
-            t0 = time.perf_counter()
-            alns = pt.align_batch(qs, ss, mode, scoring, mesh=mesh,
-                                  device=args.device)
-            ms = int(round((time.perf_counter() - t0) * 1000))
-            print(f"testing batch {mode} alignment {ms} ms", file=out)
+            with timed(f"batch {mode} alignment", file=out):
+                alns = pt.align_batch(qs, ss, mode, scoring, mesh=mesh,
+                                      device=args.device)
             for i, aln in enumerate(alns):
                 print(f"pair {i}: score {aln.score}", file=out)
                 if args.do_print:

@@ -19,6 +19,7 @@ from anyseq_tpu_torch.core.types import (
 )
 from anyseq_tpu_torch.engine import device_tb, hirschberg, linmem
 from anyseq_tpu_torch.kernels import wavefront
+from anyseq_tpu_torch.utils import profiling
 
 # align(traceback="auto") runs the full-matrix traceback up to this many
 # cells and Hirschberg above.
@@ -26,13 +27,15 @@ FULL_TB_MAX_CELLS = 1 << 22
 
 
 def _prep(query, subject, device):
-    q = as_tensor(query, device)
-    s = as_tensor(subject, device)
+    with profiling.wait():
+        q = as_tensor(query, device)
+        s = as_tensor(subject, device)
     if q.shape[0] == 0 or s.shape[0] == 0:
         raise ValueError("empty sequences are not supported")
     return q, s
 
 
+@profiling.entry("api.align_score")
 def align_score(query, subject, mode="global", scoring=LinearScoring(),
                 device="cuda") -> int:
     """Score-only alignment."""
@@ -40,9 +43,12 @@ def align_score(query, subject, mode="global", scoring=LinearScoring(),
     sc = check_scoring(scoring)
     q, s = _prep(query, subject, device)
     outs = wavefront.score(q, s, mode, sc)
-    return int(linmem.extract_end(outs, q.shape[0], s.shape[0], mode)[0])
+    score = linmem.extract_end(outs, q.shape[0], s.shape[0], mode)[0]
+    with profiling.wait():
+        return int(score)
 
 
+@profiling.entry("api.align_full_tb")
 def align_full_tb(query, subject, mode="global", scoring=LinearScoring(),
                   device="cuda") -> Alignment:
     """Full-matrix traceback alignment: O(m*n/4) bytes of predecessor
@@ -54,6 +60,7 @@ def align_full_tb(query, subject, mode="global", scoring=LinearScoring(),
     return Alignment(score, bytes(out_q), bytes(out_s), start)
 
 
+@profiling.entry("api.align")
 def align(query, subject, mode="global", scoring=LinearScoring(),
           traceback="auto", device="cuda", mesh=None) -> Alignment:
     """Construct an alignment.

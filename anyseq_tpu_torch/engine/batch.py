@@ -51,6 +51,7 @@ from anyseq_tpu_torch.engine.affine import (
     pred_codes4,
 )
 from anyseq_tpu_torch.engine.linmem import CODES_PER_WORD, _init, pack_codes
+from anyseq_tpu_torch.utils import profiling
 
 
 def _rows(q, s, ms, mode: Mode, sc: LinearScoring, emit_preds: bool):
@@ -67,7 +68,9 @@ def _rows(q, s, ms, mode: Mode, sc: LinearScoring, emit_preds: bool):
     q32 = q.to(torch.int32)
     s32 = s.to(torch.int32)
     ms = ms.to(device=dev, dtype=torch.int64)
-    for i in range(int(ms.max())):
+    with profiling.wait():
+        height = int(ms.max())
+    for i in range(height):
         active = (i < ms)[:, None]
         col_i = _init(mode, sc, i)
         diag = torch.cat([prev.new_full((B, 1), _init(mode, sc, i - 1)),
@@ -221,7 +224,9 @@ def _affine_rows(q, s, ms, mode: Mode, sc: AffineScoring, sgap,
     s32 = s.to(torch.int32)
     ms = ms.to(device=dev, dtype=torch.int64)
     neg = torch.full((1,), NEG, **i32)
-    for i in range(int(ms.max())):
+    with profiling.wait():
+        height = int(ms.max())
+    for i in range(height):
         active = (i < ms)[:, None]
         col_i = col_im1 = zero
         if glob:
@@ -528,12 +533,13 @@ def _chunks(queries, subjects, cap: int, code_bits: int,
         raise ValueError("queries and subjects must have equal length")
     if not len(queries):
         return
-    fq, fs = _flat(queries), _flat(subjects)
-    Ms, Ns = _bucket(fq[2]), _bucket(fs[2])
-    keys, first, inverse = np.unique(Ms << 32 | Ns, return_index=True,
-                                     return_inverse=True)
-    order = np.argsort(inverse, kind="stable")
-    groups = np.split(order, np.cumsum(np.bincount(inverse))[:-1])
+    with profiling.span("batch.stage", pairs=len(queries)):
+        fq, fs = _flat(queries), _flat(subjects)
+        Ms, Ns = _bucket(fq[2]), _bucket(fs[2])
+        keys, first, inverse = np.unique(Ms << 32 | Ns, return_index=True,
+                                         return_inverse=True)
+        order = np.argsort(inverse, kind="stable")
+        groups = np.split(order, np.cumsum(np.bincount(inverse))[:-1])
     for g in np.argsort(first):            # buckets in order of appearance
         M, N = int(keys[g] >> 32), int(keys[g] & 0xFFFFFFFF)
         # the sequences, last row and last column, K7's boundary columns
@@ -544,15 +550,24 @@ def _chunks(queries, subjects, cap: int, code_bits: int,
         step = max(1, min(cap, CHUNK_BYTES // per_problem))
         for lo in range(0, len(groups[g]), step):
             idx = groups[g][lo: lo + step]
-            yield (idx, _stage(fq, idx, M), _stage(fs, idx, N),
-                   fq[2][idx].astype(np.int32), fs[2][idx].astype(np.int32))
+            with profiling.span("batch.stage", pairs=len(idx)):
+                chunk = (idx, _stage(fq, idx, M), _stage(fs, idx, N),
+                         fq[2][idx].astype(np.int32),
+                         fs[2][idx].astype(np.int32))
+            yield chunk
 
 
 def _to(device, *arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in arrays]
+    """The host arrays as tensors on `device`: one copy each, which from
+    pageable memory waits for the stream's earlier work."""
+    with profiling.span("batch.copy_in",
+                        bytes=sum(a.nbytes for a in arrays)):
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        with profiling.wait():
+            return [t.to(device) for t in host]
 
 
+@profiling.entry("api.align_scores_batch")
 def align_scores_batch(queries, subjects, mode="global",
                        scoring=LinearScoring(), batch_size: int = 512,
                        device="cuda") -> np.ndarray:
@@ -573,13 +588,18 @@ def align_scores_batch(queries, subjects, mode="global",
     for idx, *arrays in _chunks(queries, subjects, SCORE_CHUNK, 0,
                                 isinstance(sc, AffineScoring)):
         q, s, ms, ns = _to(device, *arrays)
-        # the lengths on the host: K7's strip list is built there
-        res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
-                                      need_pos=False)
-        out[idx] = extract_batch(res, ms, ns, mode)[0].cpu().numpy()
+        with profiling.span("batch.sweep", pairs=len(idx)):
+            # the lengths on the host: K7's strip list is built there
+            res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
+                                          need_pos=False)
+            scores = extract_batch(res, ms, ns, mode)[0]
+        with profiling.span("batch.copy_out", bytes=scores.nbytes):
+            scores = scores.cpu()
+        out[idx] = scores.numpy()
     return out
 
 
+@profiling.entry("api.align_batch")
 def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
                 batch_size: int = 256, mesh=None,
                 device="cuda") -> list[Alignment]:
@@ -621,25 +641,29 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
     out: list = [None] * len(queries)
     for idx, *arrays in _chunks(queries, subjects, ALIGN_CHUNK, 2):
         q, s, ms, ns = _to(device, *arrays)
-        res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
-                                      emit_preds=True)
-        score, end = extract_batch(res, ms, ns, mode)
-        end = end.contiguous()
-        walked = (score > 0)[:, None] | (mode is not Mode.LOCAL)
-        # LOCAL with a best <= 0: no walk, the empty alignment with start
-        # = end + 1, as the single-pair path gives
-        oq, os_, starts = walk.walk(res["preds"], q, s,
-                                    torch.where(walked, end, -1), mode)
-        starts = torch.where(walked, starts, end + 1)
-        ints = torch.cat([score[:, None], starts], 1).to(torch.int32)
-        host = torch.cat([ints.contiguous().view(torch.uint8), oq, os_],
-                         1).cpu().numpy()
-        L = oq.shape[1]
-        ints = np.ascontiguousarray(host[:, :12]).view(np.int32).tolist()
-        lens = (arrays[2] + arrays[3]).tolist()
-        for r, (i, (sc_r, si, sj), n) in enumerate(zip(idx.tolist(), ints,
-                                                       lens)):
-            out[i] = Alignment(sc_r, host[r, 12: 12 + n].tobytes(),
-                               host[r, 12 + L: 12 + L + n].tobytes(),
-                               (si, sj))
+        with profiling.span("batch.sweep", pairs=len(idx)):
+            res = swarm.score_pairs_swarm(q, s, *arrays[2:], mode, sc,
+                                          emit_preds=True)
+            score, end = extract_batch(res, ms, ns, mode)
+            end = end.contiguous()
+            walked = (score > 0)[:, None] | (mode is not Mode.LOCAL)
+            # LOCAL with a best <= 0: no walk, the empty alignment with
+            # start = end + 1, as the single-pair path gives
+            oq, os_, starts = walk.walk(res["preds"], q, s,
+                                        torch.where(walked, end, -1), mode)
+            starts = torch.where(walked, starts, end + 1)
+            ints = torch.cat([score[:, None], starts], 1).to(torch.int32)
+            host = torch.cat([ints.contiguous().view(torch.uint8), oq, os_],
+                             1)
+        with profiling.span("batch.copy_out", bytes=host.nbytes):
+            host = host.cpu().numpy()
+        with profiling.span("batch.assemble", pairs=len(idx)):
+            L = oq.shape[1]
+            ints = np.ascontiguousarray(host[:, :12]).view(np.int32).tolist()
+            lens = (arrays[2] + arrays[3]).tolist()
+            for r, (i, (sc_r, si, sj), n) in enumerate(zip(idx.tolist(),
+                                                           ints, lens)):
+                out[i] = Alignment(sc_r, host[r, 12: 12 + n].tobytes(),
+                                   host[r, 12 + L: 12 + L + n].tobytes(),
+                                   (si, sj))
     return out

@@ -13,6 +13,7 @@ import torch
 from anyseq_tpu_torch.core.types import AffineScoring, Mode
 from anyseq_tpu_torch.engine import linmem
 from anyseq_tpu_torch.kernels import walk, wavefront
+from anyseq_tpu_torch.utils import profiling
 
 
 def fulltb(q, s, mode: Mode, sc):
@@ -25,6 +26,8 @@ def fulltb(q, s, mode: Mode, sc):
     walker = walk.walk_affine if isinstance(sc, AffineScoring) else walk.walk
     out_q, out_s, start = walker(outs["preds"][None], q[None], s[None],
                                  end[None, 1:], mode)
-    score, ei, ej, si, sj = torch.cat([end, start[0]]).tolist()
-    return (score, (ei, ej), out_q[0].cpu().numpy(), out_s[0].cpu().numpy(),
-            (si, sj))
+    ints = torch.cat([end, start[0]])
+    with profiling.wait():
+        score, ei, ej, si, sj = ints.tolist()
+        out_q, out_s = out_q[0].cpu().numpy(), out_s[0].cpu().numpy()
+    return score, (ei, ej), out_q, out_s, (si, sj)

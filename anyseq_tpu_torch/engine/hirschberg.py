@@ -52,7 +52,9 @@ its mesh branches), with the same splits and therefore the same strings:
   several processes process 0 writes it and every process reads it;
 * with ``ANYSEQ_TIMING=1`` in the environment, each level, the terminal
   stripes and the endpoint passes log their wall time (stderr, and
-  :data:`TIMING_LOG`), in the JAX package's words.
+  :data:`TIMING_LOG`), in the JAX package's words: the time of their
+  spans (``utils/profiling.py``), which record the waits for the card
+  inside them too.
 
 ``MIN_WIDTH`` is 256 on every device: the stripe boundaries decide tie
 cells in the strings, and the JAX package uses 256 off the TPU.
@@ -62,7 +64,6 @@ from __future__ import annotations
 import hashlib
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -83,6 +84,7 @@ from anyseq_tpu_torch.dist.mesh import check_mesh
 from anyseq_tpu_torch.engine import batch, linmem
 from anyseq_tpu_torch.engine.resumable import atomic_savez
 from anyseq_tpu_torch.kernels import band, lastcols, wavefront
+from anyseq_tpu_torch.utils import profiling
 
 MIN_WIDTH = 256
 TERMINAL_BATCH = 512
@@ -94,14 +96,12 @@ _STAGE_KEYS = ("stage", "score", "ei", "ej", "rscore", "ri", "rj")
 TIMING_LOG: list[str] = []
 
 
-def _tlog(msg: str) -> None:
-    if os.environ.get("ANYSEQ_TIMING") == "1":
-        TIMING_LOG.append(msg)
-        print(f"[hb] {msg}", file=sys.stderr, flush=True)
-
-
-def _ms(t0: float) -> str:
-    return f"{(time.perf_counter() - t0) * 1e3:.0f}ms"
+def _log(what: str, phase) -> None:
+    """The phase log's line of a span that has ended: `what`, then its
+    time in ms."""
+    line = f"{what} {phase.ms:.3f}ms"
+    TIMING_LOG.append(line)
+    print(f"[hb] {line}", file=sys.stderr, flush=True)
 
 
 class _HbCheckpoint:
@@ -138,8 +138,10 @@ def _ckpt_key(q, s, mode: Mode, sc) -> str:
     """The problem a checkpoint belongs to: both sequences, the mode, the
     scoring and the stripe width."""
     h = hashlib.sha256()
-    h.update(q.cpu().numpy().tobytes())
-    h.update(s.cpu().numpy().tobytes())
+    with profiling.wait():
+        q, s = q.cpu(), s.cpu()
+    h.update(q.numpy().tobytes())
+    h.update(s.numpy().tobytes())
     h.update(repr((mode.value, sc, MIN_WIDTH)).encode())
     return h.hexdigest()
 
@@ -220,7 +222,8 @@ def _level_batched(q, s, parts, sc, mesh=None):
         sgaps += [sg, eg]   # the reversed half starts where the part ends
 
     def t(v, dtype=torch.int64):
-        return torch.tensor(v, dtype=dtype, device=dev)
+        with profiling.wait():
+            return torch.tensor(v, dtype=dtype, device=dev)
 
     rev_t = t(rev, torch.bool)
     q3 = _gather(q, t(qlo), t(hs), rev_t, max(hs))
@@ -270,7 +273,9 @@ def _split(q, s, parts, sc, mesh=None, sp_min_width: int = 0):
     dev = cols[0].device
 
     def t(i, dtype=torch.int64):
-        return torch.tensor([p[i] for p in parts], dtype=dtype, device=dev)
+        with profiling.wait():
+            return torch.tensor([p[i] for p in parts], dtype=dtype,
+                                device=dev)
 
     hs = t(1) - t(0)
     mids = (t(3) - t(2)) // 2
@@ -308,7 +313,9 @@ def _walk_chunk(q, s, chunk, off, out_q, out_s, sc, mesh=None) -> torch.Tensor:
     dump = out_q.shape[0] - 1
 
     def t(i, dtype=torch.int64):
-        return torch.tensor([p[i] for p in chunk], dtype=dtype, device=dev)
+        with profiling.wait():
+            return torch.tensor([p[i] for p in chunk], dtype=dtype,
+                                device=dev)
 
     Hb = _bucket(max(p[1] - p[0] for p in chunk))
     Wb = _bucket(max(p[3] - p[2] for p in chunk), 128)
@@ -367,46 +374,59 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
     if ck is not None:
         active = _parts_list(ck["active"])
         terminals = _parts_list(ck["terminals"])
-        out_q.copy_(torch.from_numpy(ck["out_q"]))
-        out_s.copy_(torch.from_numpy(ck["out_s"]))
+        with profiling.wait():
+            out_q.copy_(torch.from_numpy(ck["out_q"]))
+            out_s.copy_(torch.from_numpy(ck["out_s"]))
         rs = int(ck["root_score"])
         root_score = None if rs == _RS_NONE else rs
         term_done = int(ck["term_done"])
 
     def save():
         if ckpt is not None:
+            with profiling.wait():
+                host_q, host_s = out_q.cpu().numpy(), out_s.cpu().numpy()
             ckpt.save(active=_parts_array(active),
                       terminals=_parts_array(terminals),
-                      out_q=out_q.cpu().numpy(), out_s=out_s.cpu().numpy(),
+                      out_q=host_q, out_s=host_s,
                       root_score=np.int64(_RS_NONE if root_score is None
                                           else root_score),
                       term_done=np.int64(term_done))
 
     while active:
         parts, active = active, []
-        t0 = time.perf_counter()
-        ks, cross, scores = _split(q, s, parts, sc, mesh, sp_min_width)
-        rows = torch.stack([ks, cross.to(ks.dtype), scores]).T.tolist()
-        for (qlo, qhi, slo, shi, sg, eg), (k, c, score) in zip(parts, rows):
-            if root_score is None:
-                root_score = score
-            mid = (shi - slo) // 2
-            c = bool(c)
-            classify((qlo, qlo + k + 1, slo, slo + mid, sg, c))
-            classify((qlo + k + 1, qhi, slo + mid, shi, c, eg))
-        _tlog(f"{_level_msg(parts, sc, mesh, sp_min_width)} {_ms(t0)}")
+        with profiling.span("hirschberg.level", parts=len(parts)) as level:
+            ks, cross, scores = _split(q, s, parts, sc, mesh, sp_min_width)
+            rows = torch.stack([ks, cross.to(ks.dtype), scores]).T
+            with profiling.wait():
+                rows = rows.tolist()
+            for (qlo, qhi, slo, shi, sg, eg), (k, c, score) in zip(parts,
+                                                                    rows):
+                if root_score is None:
+                    root_score = score
+                mid = (shi - slo) // 2
+                c = bool(c)
+                classify((qlo, qlo + k + 1, slo, slo + mid, sg, c))
+                classify((qlo + k + 1, qhi, slo + mid, shi, c, eg))
+        if profiling.recording():
+            _log(_level_msg(parts, sc, mesh, sp_min_width), level)
         save()
-    t0 = time.perf_counter()
-    for ci, chunk in enumerate(_terminal_chunks(terminals)):
-        if ci < term_done:
-            continue
-        scores = _walk_chunk(q, s, chunk, off, out_q, out_s, sc, mesh)
-        if root in chunk:
-            root_score = int(scores[chunk.index(root)])
-        term_done = ci + 1
-        save()
-    _tlog(f"{'aff ' if isinstance(sc, AffineScoring) else ''}terminals "
-          f"n={len(terminals)} {_ms(t0)}")
+    with profiling.span("hirschberg.terminals",
+                        stripes=len(terminals)) as phase:
+        for ci, chunk in enumerate(_terminal_chunks(terminals)):
+            if ci < term_done:
+                continue
+            with profiling.span("hirschberg.terminal_chunk",
+                                stripes=len(chunk)):
+                scores = _walk_chunk(q, s, chunk, off, out_q, out_s, sc,
+                                     mesh)
+                if root in chunk:
+                    with profiling.wait():
+                        root_score = int(scores[chunk.index(root)])
+            term_done = ci + 1
+            save()
+    if profiling.recording():
+        _log(f"{'aff ' if isinstance(sc, AffineScoring) else ''}terminals "
+             f"n={len(terminals)}", phase)
     return root_score
 
 
@@ -416,10 +436,11 @@ def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
     of the all-gap boundary cells (interior candidates win ties)."""
     lrow, lcol = outs["last_row"], outs["last_col"]
     rj = torch.argmax(lrow)
-    score, ri = lrow[rj].to(torch.int64), rj.new_full((), mr - 1)
     ci = torch.argmax(lcol)
-    take = lcol[ci] > score
-    score = torch.where(take, lcol[ci].to(torch.int64), score)
+    with profiling.wait():      # indexing by a device scalar reads it
+        score, ri = lrow[rj].to(torch.int64), rj.new_full((), mr - 1)
+        take = lcol[ci] > score
+        score = torch.where(take, lcol[ci].to(torch.int64), score)
     ri = torch.where(take, ci, ri)
     rj = torch.where(take, nr - 1, rj)
 
@@ -436,6 +457,7 @@ def _reverse_end(outs, mr: int, nr: int, sc) -> torch.Tensor:
     return torch.stack([score, ri, rj])
 
 
+@profiling.entry("hirschberg.align")
 def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
                      device="cuda", mesh=None, checkpoint_path=None,
                      sp_min_width: int | None = None) -> Alignment:
@@ -467,8 +489,9 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
         device = mesh.home
         if sp_min_width is None:
             sp_min_width = 2048 * mesh.size
-    q = as_tensor(query, device)
-    s = as_tensor(subject, device)
+    with profiling.wait():
+        q = as_tensor(query, device)
+        s = as_tensor(subject, device)
     m, n = q.shape[0], s.shape[0]
     if m == 0 or n == 0:
         raise ValueError("empty sequences are not supported")
@@ -478,8 +501,10 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
     out_s = out_q.clone()
 
     def result(score, start):
-        return Alignment(score, bytes(out_q[:-1].cpu().numpy()),
-                         bytes(out_s[:-1].cpu().numpy()), start)
+        with profiling.span("hirschberg.result", bytes=2 * (m + n)):
+            host_q, host_s = out_q[:-1].cpu(), out_s[:-1].cpu()
+        return Alignment(score, bytes(host_q.numpy()),
+                         bytes(host_s.numpy()), start)
 
     def rect(qr, sr, off):
         ckpt = None
@@ -509,26 +534,32 @@ def align_hirschberg(query, subject, mode, scoring=LinearScoring(),
             outer.save(**{k: np.int64(v) for k, v in zip(_STAGE_KEYS, values)})
 
     if stage < 1:
-        t0 = time.perf_counter()
-        outs = _sweep(q, s, mode, sc, mesh)
-        score, ei, ej = linmem.extract_end(outs, m, n, mode).tolist()
-        _tlog(f"fwd pass {_ms(t0)}")
+        with profiling.span("hirschberg.fwd_pass") as phase:
+            outs = _sweep(q, s, mode, sc, mesh)
+            end = linmem.extract_end(outs, m, n, mode)
+            with profiling.wait():
+                score, ei, ej = end.tolist()
+        if profiling.recording():
+            _log("fwd pass", phase)
         save_stage(1, score, ei, ej, 0, 0, 0)
     if ei < 0 or ej < 0 or (mode is Mode.LOCAL and score <= 0):
         # empty alignment: a boundary maximum, or no positive local cell
         return result(score, (ei + 1, ej + 1))
 
     if stage < 2:
-        t0 = time.perf_counter()
-        qr = q[: ei + 1].flip(0)
-        sr = s[: ej + 1].flip(0)
-        if mode is Mode.LOCAL:
-            rscore, ri, rj = _sweep(qr, sr, mode, sc, mesh)["best"].tolist()
-        else:
-            # GLOBAL inits pin the reverse start to the forward end cell
-            outs = _sweep(qr, sr, Mode.GLOBAL, sc, mesh)
-            rscore, ri, rj = _reverse_end(outs, ei + 1, ej + 1, sc).tolist()
-        _tlog(f"rev pass {_ms(t0)}")
+        with profiling.span("hirschberg.rev_pass") as phase:
+            qr = q[: ei + 1].flip(0)
+            sr = s[: ej + 1].flip(0)
+            if mode is Mode.LOCAL:
+                start = _sweep(qr, sr, mode, sc, mesh)["best"]
+            else:
+                # GLOBAL inits pin the reverse start to the forward end cell
+                outs = _sweep(qr, sr, Mode.GLOBAL, sc, mesh)
+                start = _reverse_end(outs, ei + 1, ej + 1, sc)
+            with profiling.wait():
+                rscore, ri, rj = start.tolist()
+        if profiling.recording():
+            _log("rev pass", phase)
         save_stage(2, score, ei, ej, rscore, ri, rj)
     si, sj = ei - ri, ej - rj
     if si > ei or sj > ej:

@@ -30,6 +30,7 @@ from anyseq_tpu_torch.core.types import (
     LinearScoring,
     Mode,
 )
+from anyseq_tpu_torch.utils import profiling
 
 CODES_PER_WORD = 16
 
@@ -198,8 +199,9 @@ def extract_end(outs, m: int, n: int, mode: Mode) -> torch.Tensor:
     ri = torch.argmax(row)            # argmax returns the first maximum
     col = torch.cat([zero, lc])
     ci = torch.argmax(col)
-    take = col[ci] > row[ri]
-    score = torch.where(take, col[ci], row[ri])
+    with profiling.wait():      # indexing by a device scalar reads it
+        take = col[ci] > row[ri]
+        score = torch.where(take, col[ci], row[ri])
     ei = torch.where(take, ci - 1, m - 1).to(torch.int32)
     ej = torch.where(take, n - 1, ri - 1).to(torch.int32)
     return torch.stack([score, ei, ej])
@@ -207,5 +209,7 @@ def extract_end(outs, m: int, n: int, mode: Mode) -> torch.Tensor:
 
 def extract_score_from_outputs(outs, m: int, n: int, mode: Mode):
     """(score, (i, j)) as Python ints."""
-    score, i, j = extract_end(outs, m, n, mode).tolist()
+    end = extract_end(outs, m, n, mode)
+    with profiling.wait():
+        score, i, j = end.tolist()
     return score, (i, j)

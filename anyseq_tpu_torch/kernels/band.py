@@ -35,6 +35,7 @@ from anyseq_tpu_torch.kernels._sweep import (
     reduce_best,
     strips_of,
 )
+from anyseq_tpu_torch.utils import profiling
 
 plain = linmem.score_band
 plain_affine = affine.score_band_affine
@@ -155,9 +156,9 @@ def score_pair_chained(q, s, mode: Mode, sc: LinearScoring | AffineScoring,
             outs = score_band(q[i0:i0 + h], s, row, corner, col, mode, sc)
         row = outs["last_row"]
         last_cols.append(outs["last_col"])
-        bests.append(outs["best"] + torch.tensor([0, i0, 0],
-                                                 dtype=torch.int32,
-                                                 device=dev))
+        with profiling.wait():      # from pageable memory
+            shift = torch.tensor([0, i0, 0], dtype=torch.int32, device=dev)
+        bests.append(outs["best"] + shift)
     # a later band's best takes only if strictly greater, so the earliest
     # band wins ties: argmax returns the first maximum
     bests = torch.stack(bests)

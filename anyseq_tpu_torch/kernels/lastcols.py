@@ -24,6 +24,7 @@ from anyseq_tpu_torch.core.types import AffineScoring, LinearScoring
 from anyseq_tpu_torch.engine import batch
 from anyseq_tpu_torch.kernels import _build
 from anyseq_tpu_torch.kernels._sweep import LANES
+from anyseq_tpu_torch.utils import profiling
 
 # Columns a lane K4 and K5L sweep at, widest first (csrc/lastcols.cu and
 # csrc/lastcols_affine.cu with_width): K4 one row a step, K5L one row at
@@ -76,7 +77,9 @@ def _host(x) -> np.ndarray:
     """Lengths as a contiguous int32 array on the host (lengths on the
     card are copied back: one synchronisation)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().to("cpu", torch.int32).numpy()
+        with profiling.wait():
+            x = x.detach().to("cpu", torch.int32)
+        x = x.numpy()
     return np.ascontiguousarray(x, dtype=np.int32)
 
 
@@ -135,7 +138,9 @@ def _plan(lib, name: str, ms, ns, rows, cols, value_bytes: int, width: int,
     values = np.maximum(strips - 1, 0) * rows
     boff = np.cumsum(values) - values
     meta = torch.from_numpy(np.concatenate([ms, ns, start, boff]).astype(
-        np.int64)).to(dev)
+        np.int64))
+    with profiling.wait():      # from pageable memory
+        meta = meta.to(dev)
     total, held = int(start[-1]), int(values.sum())
     global last_plan
     last_plan = Plan(width, getattr(lib, name + "_grid")(*args, width, grid),
