@@ -15,8 +15,10 @@ The same semantics as ``anyseq_tpu.core.types``, without JAX:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
+import itertools
 
 import numpy as np
 import torch
@@ -121,6 +123,21 @@ class Alignment:
             q.append(chr(cq))
             s.append(chr(cs))
         return "".join(q), "".join(s)
+
+
+def _alignments(n: int, *columns) -> list[Alignment]:
+    """``[Alignment(*row) for row in zip(*columns)]`` for `n` rows, one
+    iterable a field in the fields' order, built column by column in C
+    loops: ``object.__new__`` for every instance, then ``object.__setattr__``
+    of one field over all of them, where the frozen ``__init__`` makes four
+    calls a row from Python. The instances are the same as ``Alignment``'s
+    own: type, ``==``, ``hash``, ``repr``, and frozen."""
+    out = list(map(object.__new__, itertools.repeat(Alignment, n)))
+    for field, column in zip(dataclasses.fields(Alignment), columns):
+        collections.deque(map(object.__setattr__, out,
+                              itertools.repeat(field.name), column),
+                          maxlen=0)
+    return out
 
 
 def as_u8(seq) -> np.ndarray:

@@ -25,6 +25,10 @@ over K7's codes.
 """
 from __future__ import annotations
 
+import collections
+import gc
+import struct
+
 import numpy as np
 import torch
 
@@ -41,6 +45,7 @@ from anyseq_tpu_torch.core.types import (
     Alignment,
     LinearScoring,
     Mode,
+    _alignments,
     as_u8,
     check_scoring,
 )
@@ -657,13 +662,46 @@ def align_batch(queries, subjects, mode="global", scoring=LinearScoring(),
                              1)
         with profiling.span("batch.copy_out", bytes=host.nbytes):
             host = host.cpu().numpy()
-        with profiling.span("batch.assemble", pairs=len(idx)):
-            L = oq.shape[1]
-            ints = np.ascontiguousarray(host[:, :12]).view(np.int32).tolist()
-            lens = (arrays[2] + arrays[3]).tolist()
-            for r, (i, (sc_r, si, sj), n) in enumerate(zip(idx.tolist(),
-                                                           ints, lens)):
-                out[i] = Alignment(sc_r, host[r, 12: 12 + n].tobytes(),
-                                   host[r, 12 + L: 12 + L + n].tobytes(),
-                                   (si, sj))
+        with profiling.span("batch.assemble", pairs=len(idx)) as assembly:
+            counted = profiling.recording()
+            passes = _gc_passes() if counted else 0
+            enabled = gc.isenabled()
+            # Every object made here is acyclic (bytes, ints, 2-tuples and
+            # Alignments of them): the collector's passes over them, ~12 a
+            # chunk, can free nothing. Off for this chunk alone, and the
+            # caller's setting restored.
+            gc.disable()
+            try:
+                _assemble(out, idx, host, arrays[2] + arrays[3])
+            finally:
+                if enabled:
+                    gc.enable()
+            if counted:
+                assembly.attrs["collections"] = _gc_passes() - passes
     return out
+
+
+def _gc_passes() -> int:
+    """The cyclic collector's passes so far in this process, all
+    generations."""
+    return sum(g["collections"] for g in gc.get_stats())
+
+
+def _assemble(out: list, idx: np.ndarray, host: np.ndarray,
+              lens: np.ndarray) -> None:
+    """Put a chunk's Alignments into `out` at the pairs' input positions
+    `idx`. Row r of `host` (B, 12 + 2L) uint8 holds pair r's score, start
+    i and start j (int32), then its query and subject strings, L bytes
+    each, of which the first ``lens[r]`` (m + n) are the result. One
+    struct format, a piece a row, reads every field of the chunk in one
+    call."""
+    B, W = host.shape
+    L = (W - 12) // 2
+    lens = lens.tolist()
+    piece = {n: f"3i{n}s{L - n}x{n}s{L - n}x" for n in set(lens)}
+    fields = struct.Struct("=" + "".join(map(piece.__getitem__, lens))
+                           ).unpack(host)
+    alignments = _alignments(B, fields[0::5], fields[3::5], fields[4::5],
+                             zip(fields[1::5], fields[2::5]))
+    collections.deque(map(out.__setitem__, idx.tolist(), alignments),
+                      maxlen=0)

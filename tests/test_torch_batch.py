@@ -4,6 +4,7 @@ XLA:CPU: its swarm kernel in interpret mode, its batched XLA sweeps and
 its batch API. Every comparison is exact (int32 scores and cells, bytes
 of strings)."""
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -254,6 +255,81 @@ def test_mixed_buckets_keep_input_order(fn):
     else:
         got, want = got.tolist(), want.tolist()
     assert got == want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_align_batch_builds_plain_alignments(mode):
+    """align_batch's Alignments, built in bulk, against ones built by the
+    dataclass's own constructor from the same values: mixed buckets,
+    pairs shorter than their bucket and one that fills it, and LOCAL
+    pairs scoring <= 0 (no walk, start = end + 1). The same type, fields, ==, hash, repr and
+    compact(), and frozen."""
+    rng = np.random.default_rng(28)
+    qs = [random_dna(rng, int(rng.integers(240, 270))) for _ in range(5)]
+    ss = [mutate(rng, q) for q in qs]
+    qs += [b"AAAAAA", b"TTT", b"GATTACA", b"ACGT" * 70, b"G"]
+    ss += [b"CCCCCC", b"GG", b"GATTTACA" * 40, b"ACG", b"T"]
+    qs.append(random_dna(rng, 256))         # m + n fills its bucket
+    ss.append(random_dna(rng, 256))
+    got = pt.align_batch(qs, ss, mode, device="cpu")
+    assert type(got) is list and len(got) == len(qs)
+    if mode == "local":
+        assert [a.score for a in got[5:7]] == [0, 0]
+        assert [a.start for a in got[5:7]] == [(1, 1), (1, 1)]
+    for a, q, s in zip(got, qs, ss):
+        assert type(a) is pt.Alignment
+        assert type(a.score) is int and type(a.start) is tuple
+        assert [type(x) for x in a.start] == [int, int]
+        assert type(a.query_aligned) is type(a.subject_aligned) is bytes
+        assert len(a.query_aligned) == len(a.subject_aligned) == \
+            len(q) + len(s)
+        want = pt.Alignment(int(a.score), bytes(a.query_aligned),
+                            bytes(a.subject_aligned),
+                            (int(a.start[0]), int(a.start[1])))
+        for f in dataclasses.fields(pt.Alignment):
+            assert getattr(a, f.name) == getattr(want, f.name)
+        assert a == want and hash(a) == hash(want)
+        assert repr(a) == repr(want) and a.compact() == want.compact()
+        for f in dataclasses.fields(pt.Alignment):
+            with pytest.raises(dataclasses.FrozenInstanceError):
+                setattr(a, f.name, getattr(want, f.name))
+        with pytest.raises(dataclasses.FrozenInstanceError):
+            del a.score
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["returns", "raises"])
+@pytest.mark.parametrize("enabled", [True, False], ids=["gc-on", "gc-off"])
+def test_align_batch_restores_the_collector(monkeypatch, enabled, fails):
+    """The cyclic collector is off while a chunk's Alignments are built,
+    and afterwards as the caller left it, also where the build raises."""
+    seen = []
+
+    def build(*args):
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("build failed")
+        return bulk(*args)
+
+    bulk = batch._alignments
+    monkeypatch.setattr(batch, "_alignments", build)
+    qs, ss = _pairs(np.random.default_rng(29), 6)
+    qs.append(b"ACGT" * 80)                 # a second bucket: two chunks
+    ss.append(b"ACG")
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        if fails:
+            with pytest.raises(RuntimeError, match="build failed"):
+                pt.align_batch(qs, ss, "local", device="cpu")
+        else:
+            got = pt.align_batch(qs, ss, "local", device="cpu")
+            assert _astuples(got) == _astuples(
+                [pt.align_batch([q], [s], "local", device="cpu")[0]
+                 for q, s in zip(qs, ss)])
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert seen[:2] == ([False] if fails else [False, False])
 
 
 def test_bad_inputs_raise():

@@ -167,6 +167,30 @@ def test_batch_spans_count_pairs_and_bytes(timing):
     assert by["batch.stage"] == [{"pairs": B}, {"pairs": B}]
 
 
+@pytest.mark.parametrize("on", [True, False], ids=["recorded", "off"])
+def test_assemble_spans_count_collections(monkeypatch, on):
+    """Each batch.assemble span carries its pairs and the collector's
+    passes inside it, 0 (the collector is off there); with the switch
+    off nothing is recorded and the collector's counts are not read."""
+    reads = []
+    passes = batch._gc_passes
+    monkeypatch.setattr(batch, "_gc_passes",
+                        lambda: reads.append(1) or passes())
+    if on:
+        monkeypatch.setenv("ANYSEQ_TIMING", "1")
+    qs, ss = _pairs(10)
+    qs.append(b"ACGT" * 80)                 # a second bucket: two chunks
+    ss.append(b"ACG")
+    pt.align_batch(qs, ss, "local", SC, device="cpu")
+    spans = [s for s in profiling.spans() if s.name == "batch.assemble"]
+    if on:
+        assert [s.attrs for s in spans] == [
+            {"pairs": 10, "collections": 0}, {"pairs": 1, "collections": 0}]
+        assert len(reads) == 4
+    else:
+        assert profiling.spans() == [] and reads == []
+
+
 def test_nested_public_call_is_a_child(timing):
     """align_batch's affine path calls api.align pair by pair: child spans
     of the one call, with its call id."""
