@@ -17,12 +17,29 @@ and each has the limit 0 (the library promises the exact optimum):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from benchmark.reference import alignment as ref_alignment
+from benchmark.reference import dp
 
 LIMITS = {"failed_calls": 0, "missing": 0, "score_mismatch": 0,
           "end_mismatch": 0, "invalid_alignment": 0}
 ALIGNMENT_CHECKS = ("end_mismatch", "invalid_alignment")
+
+
+def reference_ends(item, mode: str, scoring: dict, device,
+                   dtype=torch.int32):
+    """(scores, ends) of the plain reference on one call's pairs, under the
+    configuration's scoring: linear (``gap``) or affine (``gap_open``,
+    ``gap_extend``)."""
+    args = (item.queries, item.subjects, mode, scoring["match"],
+            scoring["mismatch"])
+    if scoring["kind"] == "linear":
+        return dp.align_ends(*args, scoring["gap"], device, dtype)
+    if scoring["kind"] == "affine":
+        return dp.align_ends_affine(*args, scoring["gap_open"],
+                                    scoring["gap_extend"], device, dtype)
+    raise ValueError(f"unknown scoring kind {scoring['kind']!r}")
 
 
 def compare(item, answers, ref_scores, ref_ends, mode: str, scoring: dict,
@@ -46,10 +63,14 @@ def compare(item, answers, ref_scores, ref_ends, mode: str, scoring: dict,
     scores = np.fromiter((int(a.score) for a in answers), np.int64, A)
     starts = np.array([tuple(a.start) for a in answers], np.int64)
     count_scores(scores, ref_scores, counts)
+    if scoring["kind"] == "affine":
+        gap, gap_open = scoring["gap_extend"], scoring["gap_open"]
+    else:
+        gap, gap_open = scoring["gap"], 0
     replayed, ends, valid = ref_alignment.replay(
         qs, ss, [a.query_aligned for a in answers],
         [a.subject_aligned for a in answers], starts, scoring["match"],
-        scoring["mismatch"], scoring["gap"], device)
+        scoring["mismatch"], gap, device, gap_open)
     ms = np.fromiter(map(len, qs), np.int64, A)
     ns = np.fromiter(map(len, ss), np.int64, A)
     valid &= (replayed == scores) & ref_alignment.start_allowed(

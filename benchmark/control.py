@@ -26,7 +26,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from benchmark import check, harness, inputs  # noqa: E402
-from benchmark.reference import dp  # noqa: E402
 
 
 def control_counts(cell, seed: int, device: str) -> dict:
@@ -41,10 +40,8 @@ def control_counts(cell, seed: int, device: str) -> dict:
                          / f"{cell.traffic['entry']}.py").KIND
     counts = check.new_counts(kind)
     for item in inputs.make_pool(config, cell.traffic, seed):
-        args = (item.queries, item.subjects, mode, sc["match"],
-                sc["mismatch"], sc["gap"], device)
-        ref_scores, ref_ends = dp.align_ends(*args)
-        scores, ends = dp.align_ends(*args, dtype=low)
+        ref_scores, ref_ends = check.reference_ends(item, mode, sc, device)
+        scores, ends = check.reference_ends(item, mode, sc, device, low)
         check.compare(item, scores.tolist(), ref_scores, ref_ends, mode, sc,
                       "score", counts)
         if kind == "alignment":

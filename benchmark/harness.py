@@ -120,9 +120,12 @@ def forbidden_modules() -> list[str]:
 
 def scoring_of(program, config: dict):
     sc = config["scoring"]
-    if sc["kind"] != "linear":
-        raise ValueError("the plain reference scores linear gaps only")
-    return program.LinearScoring(sc["match"], sc["mismatch"], sc["gap"])
+    if sc["kind"] == "linear":
+        return program.LinearScoring(sc["match"], sc["mismatch"], sc["gap"])
+    if sc["kind"] == "affine":
+        return program.AffineScoring(sc["match"], sc["mismatch"],
+                                     sc["gap_open"], sc["gap_extend"])
+    raise ValueError(f"unknown scoring kind {sc['kind']!r}")
 
 
 def _work(item, answers, kind: str, per_cell: float) -> tuple[float, float]:
@@ -286,15 +289,11 @@ def _window(run: Run, pool, call, seed: int, seconds: float, traced: bool):
 def _compare(cell: Cell, pool, checked, kind: str, device: str) -> dict:
     """The counts of `checked` answers against the reference, computed
     once a pool entry."""
-    from benchmark.reference import dp
-
     mode, sc = cell.config["mode"], cell.config["scoring"]
     counts = check.new_counts(kind)
     for slot in sorted({slot for slot, _ in checked}):
         item = pool[slot]
-        ref_scores, ref_ends = dp.align_ends(
-            item.queries, item.subjects, mode, sc["match"], sc["mismatch"],
-            sc["gap"], device=device)
+        ref_scores, ref_ends = check.reference_ends(item, mode, sc, device)
         for s2, answers in checked:
             if s2 == slot:
                 check.compare(item, answers, ref_scores, ref_ends, mode, sc,

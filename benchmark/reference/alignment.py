@@ -8,7 +8,11 @@ The check replays it: the columns, in offset order, must consume the query
 from the start cell's row and the subject from its column, each column at
 the offset of its cell, with the symbols of the sequences; the score that
 the columns add up to, and the cell they end at, are returned for the
-caller to compare with the reference's optimum and end cell.
+caller to compare with the reference's optimum and end cell. With affine
+gaps each maximal run of gap columns in one string also costs the gap's
+opening once: a run is counted over the live columns in offset order (the
+' ' offsets between them ignored), so a query gap beside a subject gap is
+two runs.
 """
 from __future__ import annotations
 
@@ -38,11 +42,13 @@ def _rows(buffers, width: int, fill: int, device) -> torch.Tensor:
 
 
 def replay(queries, subjects, out_qs, out_ss, starts, match: int,
-           mismatch: int, gap: int, device="cpu"):
+           mismatch: int, gap: int, device="cpu", gap_open: int = 0):
     """(scores, ends, valid) of A alignments, as numpy arrays: the score
     their columns add up to, the cell they end at, and whether they are
     alignments of their sequences from their start cells at all (where
-    not, the score and end mean nothing). Computed on `device`."""
+    not, the score and end mean nothing). Computed on `device`. Every gap
+    column costs `gap`, and every run of them `gap_open` besides (affine
+    gaps: `gap` is the extension)."""
     A = len(queries)
     ms, ns = _lens(queries, device), _lens(subjects, device)
     L = int((ms + ns).max())
@@ -74,6 +80,15 @@ def replay(queries, subjects, out_qs, out_ss, starts, match: int,
     scores = (torch.where(both, torch.where(aq == as_, match, mismatch),
                           0).sum(1)
               + gap * (live & ~both).sum(1))
+    if gap_open:
+        # the offset of each column's previous live column, -1 where none
+        last = torch.cummax(torch.where(live, pos, -1), 1).values
+        before = torch.nn.functional.pad(last[:, :-1], (1, 0), value=-1)
+        first = before < 0
+        before = before.clamp(min=0)
+        runs = sum((gaps & (first | ~torch.gather(gaps, 1, before))).sum(1)
+                   for gaps in (live & ~takes_q, live & ~takes_s))
+        scores = scores + gap_open * runs
     return scores.cpu().numpy(), ends.cpu().numpy(), valid.cpu().numpy()
 
 

@@ -13,6 +13,31 @@ def test_int8_control_fails_short_reads(small_cell):
     assert counts["score_mismatch"] > 0 and not check.passed(counts)
 
 
+BWA = {"kind": "affine", "match": 1, "mismatch": -4, "gap_open": -6,
+       "gap_extend": -1}
+
+
+@pytest.mark.parametrize("name", ["reads150.align_batch",
+                                  "reads150.scores_batch"])
+def test_int8_control_fails_affine_reads(small_cell, monkeypatch, name):
+    """bwa mem's affine scoring on the same reads: a 150 bp read scores up
+    to 150, past int8's 127."""
+    cell = small_cell(name, pairs=64)
+    monkeypatch.setitem(cell.config, "scoring", BWA)
+    assert cell.config["control"]["dtype"] == "int8"
+    counts = control.control_counts(cell, 24, "cpu")
+    assert counts["score_mismatch"] > 0 and not check.passed(counts)
+
+
+def test_int32_in_the_controls_place_is_correct_affine(small_cell,
+                                                       monkeypatch):
+    cell = small_cell("reads150.align_batch", pairs=64)
+    monkeypatch.setitem(cell.config, "scoring", BWA)
+    monkeypatch.setitem(cell.config, "control", {"dtype": "int32"})
+    counts = control.control_counts(cell, 25, "cpu")
+    assert check.passed(counts), counts
+
+
 def test_int16_control_fails_long_pairs(small_cell):
     """Scores pass 32,767 from ~26 kbp on; a pool of two 27 kbp pairs."""
     cell = small_cell("contig100k.align", length=27_000)
