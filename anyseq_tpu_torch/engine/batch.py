@@ -8,9 +8,12 @@ linear level sweep (K4, ``kernels/lastcols.py``),
 :func:`walk_batch_ends` of the linear traceback walk (K3,
 ``kernels/walk.py``) and :func:`walk_batch_affine_ends` of the 3-state
 affine walk (K6, same module). :func:`preds_batch` and
-:func:`preds_batch_affine`, the terminal-stripe pred sweeps of the
-Hirschberg and Myers-Miller constructions, have no kernel: they are XLA
-scans in the JAX package too. One pair of row generators (:func:`_rows`,
+:func:`preds_batch_affine` are the terminal-stripe pred sweeps of the
+Hirschberg and Myers-Miller constructions (XLA scans in the JAX package).
+On a CUDA device :func:`preds_walk_batch` sweeps the linear stripes with
+K7 and its codes instead, one launch a chunk, whose codes equal
+:func:`preds_batch`'s inside each stripe; the affine stripes always run
+:func:`preds_batch_affine`. One pair of row generators (:func:`_rows`,
 :func:`_affine_rows`) carries the recurrence for all of them.
 
 Problems are padded into (B, M) / (B, N) uint8 arrays with per-problem
@@ -194,11 +197,45 @@ def walk_batch(words, q, s, ms, ns):
     return oq, os_
 
 
-def preds_walk_batch(q, s, ms, ns, sc: LinearScoring):
-    """Terminal stripes: the pred sweep, then the walk. Returns
-    (out_q, out_s, scores) with scores[b] = H_b[ms_b - 1][ns_b - 1]."""
+# the stripes :func:`_preds_walk_kernel` has swept with K7, over the
+# process's life (the Hirschberg construction reports its difference)
+k7_stripes = 0
+
+
+def preds_on_card(device) -> bool:
+    """Whether :func:`preds_walk_batch` sweeps on `device` with K7 (a CUDA
+    device), rather than with :func:`preds_batch`."""
+    return device.type == "cuda"
+
+
+def _preds_walk_kernel(lib, q, s, ms, ns, sc: LinearScoring,
+                       walk_lengths=None):
+    """:func:`preds_walk_batch` on K7 of `lib`: one launch sweeps every
+    stripe and writes the codes of :func:`preds_batch`, which the walk
+    reads; the score is K7's GLOBAL best, H[ms_b - 1][ns_b - 1]."""
+    global k7_stripes
+    from anyseq_tpu_torch.kernels import swarm
+
+    swarm._check(q, s, ms, ns, None)
+    res = swarm.launch(lib, q, s, ms, ns, Mode.GLOBAL, sc, None, False, True)
+    k7_stripes += q.shape[0]
+    oq, os_ = walk_batch(res["preds"], q, s, *(walk_lengths or (ms, ns)))
+    return oq, os_, res["best"][:, 0]
+
+
+def preds_walk_batch(q, s, ms, ns, sc: LinearScoring, walk_lengths=None):
+    """Terminal stripes: the pred sweep (K7 with codes on a CUDA device,
+    :func:`preds_batch` elsewhere), then the walk. The lengths may lie on
+    the host, where K7 builds its strip list; `walk_lengths`, where given,
+    are the same (ms, ns) on q's device, for the walk. Returns (out_q,
+    out_s, scores) with scores[b] = H_b[ms_b - 1][ns_b - 1]."""
+    if preds_on_card(q.device):
+        from anyseq_tpu_torch.kernels import _build
+
+        return _preds_walk_kernel(_build.library(), q, s, ms, ns, sc,
+                                  walk_lengths)
     words, cols = preds_batch(q, s, ms, ns, sc)
-    oq, os_ = walk_batch(words, q, s, ms, ns)
+    oq, os_ = walk_batch(words, q, s, *(walk_lengths or (ms, ns)))
     b = torch.arange(q.shape[0], device=cols.device)
     scores = cols[ms.to(device=cols.device, dtype=torch.int64) - 1, b]
     return oq, os_, scores

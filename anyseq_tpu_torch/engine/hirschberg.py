@@ -26,9 +26,13 @@ its mesh branches), with the same splits and therefore the same strings:
   run every half in one batched sweep (K4 / K5L). Only the (P,) split
   rows, crossing flags and scores come back to the host;
 * parts of width <= ``MIN_WIDTH`` (or of height <= 1) are terminal
-  stripes: a batched pred sweep in torch, then the batched walk (K3 / K6),
-  whose walked positions are copied into the output buffers on the
-  device;
+  stripes, swept and walked a chunk at a time: linear stripes by one K7
+  launch with codes (``batch.preds_walk_batch``; on the CPU the plain row
+  loop ``batch.preds_batch``), affine ones by the torch row loop
+  ``batch.preds_batch_affine``, then the batched walk (K3 / K6), whose
+  walked positions are copied into the output buffers on the device. The
+  ``hirschberg.terminals`` span counts the stripes K7 swept
+  (``k7_stripes``);
 * semiglobal and local alignments first find the end cell (forward sweep)
   and the start cell (reverse sweep on the reversed end prefix), then run
   the global construction on that rectangle;
@@ -311,26 +315,25 @@ def _walk_chunk(q, s, chunk, off, out_q, out_s, sc, mesh=None) -> torch.Tensor:
     scores."""
     dev = q.device
     dump = out_q.shape[0] - 1
-
-    def t(i, dtype=torch.int64):
-        with profiling.wait():
-            return torch.tensor([p[i] for p in chunk], dtype=dtype,
-                                device=dev)
-
-    Hb = _bucket(max(p[1] - p[0] for p in chunk))
-    Wb = _bucket(max(p[3] - p[2] for p in chunk), 128)
-    qlo, slo = t(0), t(2)
-    hs, ws = t(1) - qlo, t(3) - slo
+    qlo, qhi, slo, shi, sgap, egap = torch.tensor(chunk, dtype=torch.int64).T
+    host_hs, host_ws = qhi - qlo, shi - slo
+    Hb = _bucket(int(host_hs.max()))
+    Wb = _bucket(int(host_ws.max()), 128)
+    with profiling.wait():
+        qlo, slo, hs, ws, sgap, egap = torch.stack(
+            [qlo, slo, host_hs, host_ws, sgap, egap]).to(dev)
     fwd = torch.zeros(len(chunk), dtype=torch.bool, device=dev)
     q3 = _gather(q, qlo, hs, fwd, Hb)
     s3 = _gather(s, slo, ws, fwd, Wb)
     if isinstance(sc, AffineScoring):
-        args = (q3, s3, hs, ws, sc, t(4, torch.bool), t(5, torch.bool))
+        args = (q3, s3, hs, ws, sc, sgap.bool(), egap.bool())
         oq, os_, scores = (
             batch.preds_walk_batch_affine(*args) if mesh is None else
             dist_batch.preds_walk_batch_affine_sharded(*args, mesh))
     elif mesh is None:
-        oq, os_, scores = batch.preds_walk_batch(q3, s3, hs, ws, sc)
+        # the lengths from the host, where K7 builds its strip list
+        oq, os_, scores = batch.preds_walk_batch(q3, s3, host_hs, host_ws,
+                                                 sc, walk_lengths=(hs, ws))
     else:
         oq, os_, scores = dist_batch.preds_walk_batch_sharded(q3, s3, hs, ws,
                                                               sc, mesh)
@@ -410,6 +413,7 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
         if profiling.recording():
             _log(_level_msg(parts, sc, mesh, sp_min_width), level)
         save()
+    k7_before = batch.k7_stripes
     with profiling.span("hirschberg.terminals",
                         stripes=len(terminals)) as phase:
         for ci, chunk in enumerate(_terminal_chunks(terminals)):
@@ -425,6 +429,7 @@ def _hb_global(q, s, off: int, out_q, out_s, sc, ckpt=None, mesh=None,
             term_done = ci + 1
             save()
     if profiling.recording():
+        phase.attrs["k7_stripes"] = batch.k7_stripes - k7_before
         _log(f"{'aff ' if isinstance(sc, AffineScoring) else ''}terminals "
              f"n={len(terminals)}", phase)
     return root_score

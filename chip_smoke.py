@@ -178,7 +178,7 @@ KERNELS = {
                     "anyseq_tpu/kernels/swarm.py:318", "batch mesh"),
     "swarm_preds": ("anyseq_tpu_torch/kernels/csrc/swarm.cu",
                     "anyseq_tpu/kernels/swarm.py:318",
-                    "batch mesh processes"),
+                    "linear batch genome mesh processes"),
     "band": ("anyseq_tpu_torch/kernels/csrc/band.cu",
              "anyseq_tpu/kernels/band.py:1443", "genome"),
     "band_affine": ("anyseq_tpu_torch/kernels/csrc/band_affine.cu",

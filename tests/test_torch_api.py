@@ -13,6 +13,7 @@ import anyseq_tpu_torch as pt
 from anyseq_tpu.engine.hirschberg import align_hirschberg
 
 from conftest import mutate, random_dna
+from terminal_cases import TERMINAL_KINDS, terminal_pair
 
 MODES = ["global", "semiglobal", "local"]
 SC = pt.LinearScoring(2, -1, -1)
@@ -53,6 +54,31 @@ def test_api_matches_reference(mode, kind):
     assert _astuple(pt.align(q, s, mode, traceback="hirschberg",
                              device="cpu")) == \
         _astuple(align_hirschberg(q, s, mode, min_width=256))
+
+
+@pytest.mark.parametrize("kind", TERMINAL_KINDS)
+def test_hirschberg_terminal_stripes(kind, monkeypatch):
+    """Linear constructions whose terminal stripes fall in several padded
+    shapes, or whose root is itself a stripe (one of one row), on CPU
+    tensors: the JAX package's strings and score. The stripes' bounds
+    reach the sweep from the host; on the CPU the plain row loop sweeps
+    them, and the ``hirschberg.terminals`` span counts no K7 stripe."""
+    from anyseq_tpu_torch.utils import profiling
+
+    q, s, mode = terminal_pair(kind)
+    monkeypatch.setenv("ANYSEQ_TIMING", "1")
+    profiling.clear()
+    got = pt.align(q, s, mode, SC, traceback="hirschberg", device="cpu")
+    spans = profiling.spans()
+    profiling.clear()
+    assert _astuple(got) == _astuple(align_hirschberg(q, s, mode,
+                                                      min_width=256))
+    (phase,) = [x for x in spans if x.name == "hirschberg.terminals"]
+    chunks = [x for x in spans if x.name == "hirschberg.terminal_chunk"]
+    assert phase.attrs["stripes"] == sum(c.attrs["stripes"] for c in chunks)
+    assert phase.attrs["k7_stripes"] == 0
+    if kind == "two buckets":
+        assert len(chunks) == 2
 
 
 @pytest.mark.parametrize("mode", MODES)

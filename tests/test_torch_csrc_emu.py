@@ -23,7 +23,9 @@ from anyseq_tpu_torch.kernels import (
     walk,
     wavefront,
 )
-from anyseq_tpu_torch.utils import debug
+from anyseq_tpu_torch.utils import debug, profiling
+
+from terminal_cases import TERMINAL_KINDS, terminal_pair
 
 SC = LinearScoring(2, -1, -1)
 # the bench suite's affine scoring, and a free extension (ge = 0)
@@ -498,6 +500,121 @@ def test_swarm_codes_walked_match_xla(emu_lib, affine):
                                   np.asarray(ref_q)[:, :M + N])
     np.testing.assert_array_equal(got[1].numpy(),
                                   np.asarray(ref_s)[:, :M + N])
+
+
+def _stripes(rng, heights, widths):
+    """GLOBAL stripes of the given heights and widths over ACGT (many
+    ties), padded as the construction's ``_walk_chunk`` pads a chunk:
+    rows to a multiple of 256, columns (at most 256) to 128 or 256, with
+    real symbols; the lengths on the host."""
+    shapes = [(int(h), int(w)) for h, w in zip(heights, widths)]
+    q, s, ms, ns = _swarm_batch(rng, shapes)
+    M = max(256, -(-q.shape[1] // 256) * 256)
+    N = max(128, -(-s.shape[1] // 128) * 128)
+    sym = np.frombuffer(b"ACGT", np.uint8)
+    pad_q = torch.from_numpy(sym[rng.integers(0, 4, (len(shapes), M))])
+    pad_s = torch.from_numpy(sym[rng.integers(0, 4, (len(shapes), N))])
+    pad_q[:, :q.shape[1]] = q
+    pad_s[:, :s.shape[1]] = s
+    return pad_q, pad_s, ms, ns
+
+
+_STRIPE_CASES = {
+    # one width a batch, heights 1, 2 and up to 512
+    **{f"width {w}": (w, None) for w in (1, 2, 128, 129, 255, 256)},
+    # widths on both sides of the 128-column bucket in one batch
+    "both buckets": (None, None),
+    # every stripe as tall as the 512-row bucket allows
+    "tall": (None, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(_STRIPE_CASES))
+def test_preds_walk_kernel_route(emu_lib, case):
+    """``batch.preds_walk_batch``'s route on the card (K7 with codes, one
+    launch, then the walk) on the emulated K7, on stripe-shaped GLOBAL
+    batches: the strings and scores of the plain route (``preds_batch`` and
+    the plain walk) and the strings of the JAX package's
+    ``preds_walk_batch`` on XLA:CPU, bit for bit; the scores also the JAX
+    pred sweep's last column at each stripe's last row."""
+    import jax.numpy as jnp
+
+    from anyseq_tpu.core.types import LinearScoring as JaxLinear
+    from anyseq_tpu.engine import batch as jax_batch
+
+    width, height = _STRIPE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    B = 24
+    if width is None:
+        widths = rng.integers(1, 257, B)
+        widths[:2] = 128, 129
+    else:
+        widths = np.full(B, width)
+    heights = (np.full(B, height) if height else
+               np.concatenate([[1, 2, 512], rng.integers(1, 513, B - 3)]))
+    q, s, ms, ns = _stripes(rng, heights, widths)
+    swept = batch.k7_stripes
+    got = batch._preds_walk_kernel(emu_lib, q, s, ms, ns, SC)
+    assert batch.k7_stripes - swept == B
+    words, cols = batch.preds_batch(q, s, ms, ns, SC)
+    want_q, want_s = batch.walk_batch(words, q, s, ms, ns)
+    want_scores = cols[ms - 1, torch.arange(B)]
+    for a, b in zip(got, (want_q, want_s, want_scores)):
+        assert torch.equal(a, b)
+    jargs = (jnp.asarray(q.numpy(), jnp.int32),
+             jnp.asarray(s.numpy(), jnp.int32), jnp.asarray(ms.numpy()),
+             jnp.asarray(ns.numpy()))
+    ref_q, ref_s = jax_batch.preds_walk_batch(*jargs, JaxLinear(2, -1, -1))
+    L = q.shape[1] + s.shape[1]
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref_q)[:, :L])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref_s)[:, :L])
+    _, ref_cols = jax_batch.preds_batch(*jargs, JaxLinear(2, -1, -1))
+    np.testing.assert_array_equal(
+        got[2].numpy(), np.asarray(ref_cols)[ms.numpy() - 1, np.arange(B)])
+
+
+_BAD_STRIPES = {
+    "int32 q": lambda q, s: (q.int(), s),
+    "1-D s": lambda q, s: (q, s[0]),
+    "strided q": lambda q, s: (q[:, ::2], s),
+    "batch sizes": lambda q, s: (q, s[1:]),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_STRIPES))
+def test_preds_walk_kernel_checks_inputs(case):
+    """The route on the card holds its inputs to K7's checks (uint8, 2-D,
+    unit stride, one batch size) before it plans a launch."""
+    rng = np.random.default_rng(7)
+    q, s, ms, ns = _stripes(rng, [3, 5], [4, 2])
+    q, s = _BAD_STRIPES[case](q, s)
+    with pytest.raises(ValueError):
+        batch._preds_walk_kernel(None, q, s, ms, ns, SC)
+
+
+@pytest.mark.parametrize("kind", TERMINAL_KINDS)
+def test_hirschberg_terminals_on_k7(emu_lib, monkeypatch, kind):
+    """A linear construction with its terminal stripes routed as on the
+    card, through the emulated K7 with the stripes' lengths from the host:
+    the plain route's strings and score, one K7 launch a chunk, and the
+    ``hirschberg.terminals`` span counts every stripe as K7's."""
+    import anyseq_tpu_torch as pt
+
+    q, s, mode = terminal_pair(kind)
+    want = pt.align(q, s, mode, SC, traceback="hirschberg", device="cpu")
+    monkeypatch.setattr(batch, "preds_on_card", lambda device: True)
+    monkeypatch.setattr(_build, "library", lambda: emu_lib)
+    monkeypatch.setenv("ANYSEQ_TIMING", "1")
+    launches = _build.launches["swarm_preds"]
+    profiling.clear()
+    got = pt.align(q, s, mode, SC, traceback="hirschberg", device="cpu")
+    spans = profiling.spans()
+    profiling.clear()
+    assert got == want
+    (phase,) = [x for x in spans if x.name == "hirschberg.terminals"]
+    chunks = [x for x in spans if x.name == "hirschberg.terminal_chunk"]
+    assert phase.attrs["k7_stripes"] == phase.attrs["stripes"] > 0
+    assert _build.launches["swarm_preds"] - launches == len(chunks)
 
 
 def _band_case(q, s, i0, mode, sc, start_gap=False):

@@ -250,6 +250,25 @@ def test_timing_log_lines(timing, capsys):
                for ln in hirschberg.TIMING_LOG)
 
 
+def test_terminals_span_and_line(timing):
+    """The terminal phase keeps its span ``hirschberg.terminals`` (with
+    ``stripes``, and ``k7_stripes``: the stripes K7 swept, none on the
+    CPU), its chunks' spans and its phase-log line ``terminals n=<stripes>``,
+    which the benchmark reads, with the span's time."""
+    q, s = _long_pair()
+    hirschberg.TIMING_LOG.clear()
+    pt.align(q, s, "global", SC, traceback="hirschberg", device="cpu")
+    (phase,) = [x for x in profiling.spans()
+                if x.name == "hirschberg.terminals"]
+    chunks = [x for x in profiling.spans()
+              if x.name == "hirschberg.terminal_chunk"]
+    n = phase.attrs["stripes"]
+    assert phase.attrs == {"stripes": n, "k7_stripes": 0} and n > 0
+    assert sum(c.attrs["stripes"] for c in chunks) == n
+    assert all(c.parent == phase.index for c in chunks)
+    assert hirschberg.TIMING_LOG[-1] == f"terminals n={n} {phase.ms:.3f}ms"
+
+
 def test_span_cap_counts_dropped(timing, monkeypatch):
     """Past MAX_SPANS nothing more is kept, and ``dropped`` counts what
     was not; clear() forgets both."""
